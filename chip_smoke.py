@@ -168,19 +168,40 @@ def _privacy(api, DPConfig, name):
     return api.PrivacyConfig()
 
 
+class _CpuDraws:
+    """The port's seeded draws, made by a CPU generator and handed over on
+    ``device``, so that a run on the card and one on the CPU see the same
+    numbers."""
+
+    def __init__(self, torch, seed: int, device: str):
+        from repro_torch.draws import Draws
+
+        self._cpu, self._device = Draws(seed, "cpu"), torch.device(device)
+
+    def __getattr__(self, name):
+        draw = getattr(self._cpu, name)
+
+        def moved(*args):
+            out = draw(*args)
+            if isinstance(out, tuple):
+                return tuple(t.to(self._device) for t in out)
+            return None if out is None else out.to(self._device)
+
+        return moved
+
+
 def agree_phase(torch) -> None:
     """The port on the card against the port on the CPU, at a small size."""
     from repro_torch import api
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import MNIST_LIKE, make_image_dataset
-    from repro_torch.draws import Draws
     from repro_torch.models import resnet
     from repro_torch.privacy.dp import DPConfig
 
     data = make_image_dataset(MNIST_LIKE, seed=1, n_train=600, n_test=256)
     parts = dirichlet_partition(data["train"]["label"], 6, 0.5, seed=1)
     rcfg = resnet.ResNetConfig(name="small", widths=(8, 16), depths=(1, 1), in_channels=1)
-    params = resnet.init_resnet(torch.Generator().manual_seed(0), rcfg)
+    params = resnet.init_resnet(torch.Generator().manual_seed(0), rcfg, device="cpu")
     for name in COMPOSITIONS:
         cfg = api.ExperimentConfig(
             training=api.TrainingConfig(n_clients=6, clients_per_round=3, rounds=2,
@@ -191,7 +212,7 @@ def agree_phase(torch) -> None:
         for device in ("cuda", "cpu"):
             fed = api.Federation(cfg, _task(api, data, parts, rcfg, params, resnet),
                                  device=device)
-            fed.strategy.draws = Draws(0, device, generator_device="cpu")
+            fed.strategy.draws = _CpuDraws(torch, 0, device)
             hist[device] = fed.run()
         g, c = hist["cuda"], hist["cpu"]
         assert g["selected"] == c["selected"], (name, g["selected"], c["selected"])

@@ -48,8 +48,8 @@ class AggregationContext:
     reduction.  ``QuantizeStage`` sets ``ring``, ``MaskStage`` deposits the
     pads, and every stage appends its record."""
 
-    def __init__(self, pspace: ParamSpace, k: int, weights, draws, weighted_sum: Callable,
-                 device="cpu"):
+    def __init__(self, pspace: ParamSpace, k: int, weights, draws, weighted_sum: Callable, *,
+                 device):
         self.pspace = pspace
         self.k = int(k)
         self.weights = np.asarray(weights, np.float64)

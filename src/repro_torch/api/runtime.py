@@ -87,8 +87,7 @@ class RuntimeContext:
 
         sample = self._to_device(task.clients[0].stacked_steps(train.batch_size,
                                                                train.local_steps, 0))
-        self.round_flops = (client_mod.local_round_flops(self.trainer, params0, sample)
-                            or 6.0 * self.pspace.dim * train.batch_size * train.local_steps)
+        self.round_flops = client_mod.local_round_flops(self.trainer, params0, sample)
         self.model_bytes = float(self.pspace.nbytes)
         self.param_dim = self.pspace.dim
 

@@ -19,8 +19,8 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(arrays: Mapping[str, object], like: Optional[Mapping[str, torch.Tensor]] = None,
-                      device="cpu") -> dict[str, torch.Tensor]:
+def params_from_numpy(arrays: Mapping[str, object], *, device,
+                      like: Optional[Mapping[str, torch.Tensor]] = None) -> dict[str, torch.Tensor]:
     """Reference parameter dict (name -> array) -> the port's parameter dict.
 
     With ``like`` (for example the port's own ``init_resnet`` at the same
@@ -38,7 +38,7 @@ def params_from_numpy(arrays: Mapping[str, object], like: Optional[Mapping[str, 
     return out
 
 
-def fleet_from_numpy(fleet, device="cpu") -> ProviderFleet:
+def fleet_from_numpy(fleet, *, device) -> ProviderFleet:
     """Anything with the fields of a ``ProviderFleet`` (capability,
     bandwidth, efficiency, phase; for example the reference's) -> the
     port's fleet, float32 on ``device``."""

@@ -40,7 +40,7 @@ class ProviderFleet(NamedTuple):
         return self.capability.shape[0]
 
 
-def make_fleet(gen: torch.Generator, n: int, hetero: float = 0.35, device="cpu") -> ProviderFleet:
+def make_fleet(gen: torch.Generator, n: int, hetero: float = 0.35, *, device) -> ProviderFleet:
     """Heterogeneous fleet drawn from ``gen``; ``hetero`` scales the spread."""
     normal = lambda: torch.randn(n, generator=gen, device=gen.device)  # noqa: E731
     cap = torch.clamp(1.0 + hetero * normal(), 0.3, 2.0)

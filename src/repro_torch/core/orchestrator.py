@@ -45,7 +45,7 @@ class OrchestratorState(NamedTuple):
 
 
 def init_state(n_providers: int, eps0: float = 0.3, *, stale_in_state: bool = False,
-               device="cpu") -> OrchestratorState:
+               device) -> OrchestratorState:
     n_rows = N_STATES * (N_STALE if stale_in_state else 1)
     f32 = dict(dtype=torch.float32, device=device)
     return OrchestratorState(

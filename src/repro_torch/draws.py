@@ -19,7 +19,7 @@ port's rounds against the reference's.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -27,45 +27,35 @@ Device = Union[str, torch.device]
 
 
 class Draws:
-    """Seeded draws from one ``torch.Generator``.
+    """Seeded draws from one ``torch.Generator`` on ``device``."""
 
-    The generator lives on ``generator_device`` (default: ``device``), and
-    every draw is returned on ``device``.  Drawing on the CPU and moving the
-    result makes two runs on different devices see the same numbers.
-    """
-
-    def __init__(self, seed: int, device: Device, generator_device: Optional[Device] = None):
+    def __init__(self, seed: int, device: Device):
         self.device = torch.device(device)
-        self.generator_device = torch.device(generator_device or device)
-        self.gen = torch.Generator(device=self.generator_device)
+        self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
-
-    def _out(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.device)
 
     def round_start(self) -> None:
         """Start of a round (the seeded stream needs no bookkeeping)."""
 
     def selection_uniform(self, n: int) -> torch.Tensor:
         """(n,) float32 uniforms in [0, 1) for score-based selection."""
-        return self._out(torch.rand(n, generator=self.gen, device=self.generator_device))
+        return torch.rand(n, generator=self.gen, device=self.device)
 
     def selection_uniforms3(self, n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The orchestrator's three draws: (n,) jitter, (n,) explore scores,
         and the scalar exploration coin."""
-        u = torch.rand(2 * n + 1, generator=self.gen, device=self.generator_device)
-        u = self._out(u)
+        u = torch.rand(2 * n + 1, generator=self.gen, device=self.device)
         return u[:n], u[n:2 * n], u[2 * n]
 
     def intensity_noise(self, n: int) -> torch.Tensor:
         """(n,) standard normals for the grid-intensity noise term."""
-        return self._out(torch.randn(n, generator=self.gen, device=self.generator_device))
+        return torch.randn(n, generator=self.gen, device=self.device)
 
     def pads(self, k: int, p: int) -> torch.Tensor:
         """(k, p) one-time pads: uniform 32-bit patterns held as int32."""
-        return self._out(torch.randint(-2**31, 2**31, (k, p), dtype=torch.int32,
-                                       generator=self.gen, device=self.generator_device))
+        return torch.randint(-2**31, 2**31, (k, p), dtype=torch.int32, generator=self.gen,
+                             device=self.device)
 
     def dp_noise(self, p: int) -> torch.Tensor:
         """(p,) standard normals for the server-side Gaussian mechanism."""
-        return self._out(torch.randn(p, generator=self.gen, device=self.generator_device))
+        return torch.randn(p, generator=self.gen, device=self.device)

@@ -101,4 +101,7 @@ def local_round_flops(trainer: Callable, params: Params, batches: dict) -> float
     counter = FlopCounterMode(display=False)
     with counter:
         trainer(params, batches, 0.0)
-    return float(counter.get_total_flops())
+    flops = counter.get_total_flops()
+    if flops <= 0:
+        raise RuntimeError("FlopCounterMode counted no operations in a local round")
+    return float(flops)

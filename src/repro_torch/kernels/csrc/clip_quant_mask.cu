@@ -10,14 +10,15 @@
 // ciphertext (3*k*P*4 bytes), a few operations per element.  The Pallas
 // design keeps whole rows in VMEM, which caps it near 150k parameters; a
 // ResNet-Tiny row is 18.8 MB and a block has 227 KB of shared memory.  So
-// the norm is split out, in two deterministic launches and no atomics:
+// the norm is split out, in three deterministic launches and no atomics,
+// over a (k, n_tiles + 1) double scratch:
 //   1. norm_partials_kernel, grid (tile, row): the sum of squares of one
 //      kNormTile-column tile of rows[r, :dim], accumulated in double and
-//      reduced by a fixed-shape tree, into a (k, n_tiles) scratch.
-//   2. encode_kernel, grid (column block, row): each block reduces its
-//      row's partials in a fixed order to the norm and the scale (every
-//      block of a row computes the same bits), then encodes its columns with
-//      16-byte loads and stores.
+//      reduced by a fixed-shape tree, into scratch[r, tile].
+//   2. row_scale_kernel, one block per row: the row's partials, reduced in a
+//      fixed order, give the norm and the scale, into scratch[r, n_tiles].
+//   3. encode_kernel, grid (column block, row): each thread reads its row's
+//      scale once and encodes 4 columns with 16-byte loads and stores.
 // This reads the rows twice (4*k*P*4 bytes in all).  Double accumulation
 // makes the norm the correctly rounded float32 of the exact one, which the
 // plain version (ref.clip_quant_mask_ref) computes the same way.  The
@@ -48,7 +49,7 @@ __device__ double block_sum(double v, double* smem) {
 }
 
 __global__ void __launch_bounds__(rt::kThreads)
-norm_partials_kernel(const float* __restrict__ rows, double* __restrict__ partials,
+norm_partials_kernel(const float* __restrict__ rows, double* __restrict__ scratch,
                      long long P, long long dim, long long n_tiles, int vec) {
   __shared__ double smem[kWarps];
   const int r = blockIdx.y;
@@ -72,7 +73,20 @@ norm_partials_kernel(const float* __restrict__ rows, double* __restrict__ partia
     }
   }
   const double s = block_sum(acc, smem);
-  if (threadIdx.x == 0) partials[r * n_tiles + blockIdx.x] = s;
+  if (threadIdx.x == 0) scratch[r * (n_tiles + 1) + blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(rt::kThreads)
+row_scale_kernel(double* __restrict__ scratch, long long n_tiles, float clip) {
+  __shared__ double smem[kWarps];
+  double* row = scratch + blockIdx.x * (n_tiles + 1);
+  double acc = 0.0;
+  for (long long t = threadIdx.x; t < n_tiles; t += rt::kThreads) acc += row[t];
+  const double total = block_sum(acc, smem);
+  if (threadIdx.x == 0) {
+    const float norm = static_cast<float>(sqrt(total));
+    row[n_tiles] = fminf(1.0f, __fdiv_rn(clip, fmaxf(norm, 1e-12f)));  // exact in double
+  }
 }
 
 __device__ __forceinline__ uint32_t encode1(float x, uint32_t pad, float scale, float clip,
@@ -85,25 +99,13 @@ __device__ __forceinline__ uint32_t encode1(float x, uint32_t pad, float scale, 
 
 __global__ void __launch_bounds__(rt::kThreads)
 encode_kernel(const float* __restrict__ rows, const uint32_t* __restrict__ masks,
-              uint32_t* __restrict__ out, const double* __restrict__ partials, long long P,
+              uint32_t* __restrict__ out, const double* __restrict__ scratch, long long P,
               long long n_tiles, float clip, float qscale, int vec) {
-  __shared__ double smem[kWarps];
-  __shared__ float s_scale;
   const int r = blockIdx.y;
-  double acc = 0.0;
-  for (long long t = threadIdx.x; t < n_tiles; t += rt::kThreads)
-    acc += partials[r * n_tiles + t];
-  const double total = block_sum(acc, smem);
-  if (threadIdx.x == 0) {
-    const float norm = static_cast<float>(sqrt(total));
-    s_scale = fminf(1.0f, __fdiv_rn(clip, fmaxf(norm, 1e-12f)));
-  }
-  __syncthreads();
-  const float scale = s_scale;
-
   const long long col =
       (static_cast<long long>(blockIdx.x) * rt::kThreads + threadIdx.x) * 4;
   if (col >= P) return;
+  const float scale = static_cast<float>(__ldg(scratch + r * (n_tiles + 1) + n_tiles));
   const long long base = r * P + col;
   if (vec) {
     const float4 x = __ldg(reinterpret_cast<const float4*>(rows + base));
@@ -120,24 +122,27 @@ encode_kernel(const float* __restrict__ rows, const uint32_t* __restrict__ masks
 
 }  // namespace
 
-// Number of norm tiles per row: the wrapper sizes the (k, n_tiles) scratch.
+// Number of norm tiles per row: the wrapper sizes the (k, n_tiles + 1) scratch.
 RT_EXPORT long long rt_clip_quant_mask_tiles(long long dim) {
   return (dim + kNormTile - 1) / kNormTile;
 }
 
 RT_EXPORT int rt_clip_quant_mask(const float* rows, const uint32_t* masks, uint32_t* out,
-                                 double* partials, int k, long long P, long long dim,
+                                 double* scratch, int k, long long P, long long dim,
                                  float clip, float qscale, int vec, void* stream) {
   if (k <= 0 || k > 65535 || P <= 0 || dim <= 0 || dim > P)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_tiles = rt_clip_quant_mask_tiles(dim);
   norm_partials_kernel<<<dim3(static_cast<unsigned>(n_tiles), static_cast<unsigned>(k)),
-                         rt::kThreads, 0, s>>>(rows, partials, P, dim, n_tiles, vec);
-  const cudaError_t e = cudaGetLastError();
+                         rt::kThreads, 0, s>>>(rows, scratch, P, dim, n_tiles, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  row_scale_kernel<<<static_cast<unsigned>(k), rt::kThreads, 0, s>>>(scratch, n_tiles, clip);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   encode_kernel<<<dim3(static_cast<unsigned>(rt::col4_blocks(P)), static_cast<unsigned>(k)),
-                  rt::kThreads, 0, s>>>(rows, masks, out, partials, P, n_tiles, clip, qscale,
+                  rt::kThreads, 0, s>>>(rows, masks, out, scratch, P, n_tiles, clip, qscale,
                                         vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,10 +124,11 @@ def clip_quant_mask(rows: torch.Tensor, masks: torch.Tensor, clip: float, bits: 
     if k == 0:
         return out
     lib = _build.lib("clip_quant_mask")
-    partials = torch.empty((k, lib.rt_clip_quant_mask_tiles(dim)), dtype=torch.float64,
-                           device=rows.device)
+    # per row: the norm tiles' partial sums of squares, then the row's scale
+    scratch = torch.empty((k, lib.rt_clip_quant_mask_tiles(dim) + 1), dtype=torch.float64,
+                          device=rows.device)
     err = lib.rt_clip_quant_mask(
-        rows.data_ptr(), masks.data_ptr(), out.data_ptr(), partials.data_ptr(), k, P, dim,
+        rows.data_ptr(), masks.data_ptr(), out.data_ptr(), scratch.data_ptr(), k, P, dim,
         clip, ref.quant_scale(clip, bits), _vec(P, rows, masks, out), _stream())
     _raise_on(err, "clip_quant_mask")
     launches["clip_quant_mask"] += 1

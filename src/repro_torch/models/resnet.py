@@ -38,7 +38,7 @@ def _conv_init(gen, k, cin, cout, device):
     return (w * (2.0 / fan_in) ** 0.5).to(device)
 
 
-def init_resnet(gen: torch.Generator, cfg: ResNetConfig, device="cpu") -> dict[str, torch.Tensor]:
+def init_resnet(gen: torch.Generator, cfg: ResNetConfig, *, device) -> dict[str, torch.Tensor]:
     """Random parameters in the reference's layout, drawn from ``gen``."""
     ones = lambda n: torch.ones(n, device=device)  # noqa: E731
     zeros = lambda n: torch.zeros(n, device=device)  # noqa: E731

@@ -44,7 +44,8 @@ torch.set_num_threads(2)
 
 def _np_params(rcfg_t, seed=0):
     return {n: v.numpy() for n, v in
-            tresnet.init_resnet(torch.Generator().manual_seed(seed), rcfg_t).items()}
+            tresnet.init_resnet(torch.Generator().manual_seed(seed), rcfg_t,
+                                device="cpu").items()}
 
 
 def _cfgs(widths=(8, 16), depths=(1, 1), in_channels=1):
@@ -68,7 +69,8 @@ def test_paramspace_rows_are_bitwise_after_convert():
     _, tcfg = _cfgs(widths=(8, 16, 16), depths=(2, 1, 1))
     np_params = _np_params(tcfg)
     jps = JParamSpace.build({n: jnp.asarray(v) for n, v in np_params.items()})
-    tparams = convert.params_from_numpy(np_params, like=tresnet.init_resnet(torch.Generator(), tcfg))
+    tparams = convert.params_from_numpy(
+        np_params, device="cpu", like=tresnet.init_resnet(torch.Generator(), tcfg, device="cpu"))
     tps = TParamSpace.build(tparams)
     assert (tps.dim, tps.padded_dim, tps.sizes, tps.offsets) == \
         (jps.dim, jps.padded_dim, jps.sizes, jps.offsets)
@@ -83,7 +85,7 @@ def test_full_resnet_tiny_layout_matches_the_reference():
     reference's abstract shapes (nothing full-size is computed here)."""
     jcfg = jresnet.ResNetConfig(widths=(64, 128, 256), depths=(4, 4, 3), in_channels=3)
     shapes = jax.eval_shape(lambda: jresnet.init_resnet(jax.random.PRNGKey(0), jcfg))
-    tparams = tresnet.init_resnet(torch.Generator().manual_seed(0), T_RESNET_TINY)
+    tparams = tresnet.init_resnet(torch.Generator().manual_seed(0), T_RESNET_TINY, device="cpu")
     assert {n: tuple(s.shape) for n, s in shapes.items()} == \
         {n: tuple(t.shape) for n, t in tparams.items()}
     tps = TParamSpace.build(tparams)
@@ -94,12 +96,12 @@ def test_full_resnet_tiny_layout_matches_the_reference():
 
 def test_convert_rejects_wrong_names_and_shapes():
     _, tcfg = _cfgs()
-    like = tresnet.init_resnet(torch.Generator(), tcfg)
+    like = tresnet.init_resnet(torch.Generator(), tcfg, device="cpu")
     arrays = {n: v.numpy() for n, v in like.items()}
     with pytest.raises(ValueError):
-        convert.params_from_numpy({**arrays, "extra": np.zeros(3)}, like=like)
+        convert.params_from_numpy({**arrays, "extra": np.zeros(3)}, device="cpu", like=like)
     with pytest.raises(ValueError):
-        convert.params_from_numpy({**arrays, "head_b": np.zeros(11)}, like=like)
+        convert.params_from_numpy({**arrays, "head_b": np.zeros(11)}, device="cpu", like=like)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +152,7 @@ def test_cohort_trainer_delta_rows_match():
     corr = jax.tree.map(lambda z: jnp.zeros((2,) + z.shape, z.dtype), jp)
     jres = jrun(jp, {k: jnp.asarray(v) for k, v in batches.items()}, jnp.asarray(mus), corr)
 
-    tp = convert.params_from_numpy(np_params)
+    tp = convert.params_from_numpy(np_params, device="cpu")
     tps = TParamSpace.build(tp)
     tloss = lambda p, b: tresnet.resnet_loss(p, tcfg, b)  # noqa: E731
     trun = tclient.make_cohort_trainer(tloss, topt.momentum(0.05, beta=0.9), tps)
@@ -170,8 +172,8 @@ def test_server_update_matches():
              for n, v in np_params.items()}
     js, japply = jserver.make_server("fedavg", {n: jnp.asarray(v) for n, v in np_params.items()})
     js = japply(js, {n: jnp.asarray(v) for n, v in delta.items()})
-    ts, tapply = tserver.make_server("fedavg", convert.params_from_numpy(np_params))
-    ts = tapply(ts, convert.params_from_numpy(delta))
+    ts, tapply = tserver.make_server("fedavg", convert.params_from_numpy(np_params, device="cpu"))
+    ts = tapply(ts, convert.params_from_numpy(delta, device="cpu"))
     for n in np_params:
         assert np.array_equal(ts.params[n].numpy(), np.asarray(js.params[n])), n
     with pytest.raises(NotImplementedError):
@@ -196,7 +198,7 @@ def test_round_flops_counter_against_xla_cost_analysis():
         jp, {k: jnp.asarray(v) for k, v in batches.items()}).compile().cost_analysis()["flops"])
     ttrainer = tclient.make_local_trainer(lambda p, b: tresnet.resnet_loss(p, tcfg, b),
                                           topt.momentum(0.05, beta=0.9))
-    counted = tclient.local_round_flops(ttrainer, convert.params_from_numpy(np_params),
+    counted = tclient.local_round_flops(ttrainer, convert.params_from_numpy(np_params, device="cpu"),
                                         {k: torch.from_numpy(v) for k, v in batches.items()})
     print(f"round FLOPs, widths (8, 16), 4 steps of batch 16: FlopCounterMode {counted:.0f}, "
           f"XLA cost_analysis {xla:.0f}, ratio {counted / xla:.4f}")
@@ -254,7 +256,8 @@ def test_pipeline_records_and_mean_row_match(name):
     jmean = np.asarray(jpipeline.aggregate(jnp.asarray(rows), jctx))
     tctx = tpipe.AggregationContext(
         tps, k, weights, _InjectedDraws(k_mask, k_noise),
-        lambda r, w: tops.staleness_aggregate(tps.pad_rows(r).contiguous(), w)[: tps.dim])
+        lambda r, w: tops.staleness_aggregate(tps.pad_rows(r).contiguous(), w)[: tps.dim],
+        device="cpu")
     tmean = tpipeline.aggregate(torch.from_numpy(rows), tctx).numpy()
 
     assert [(r.stage, r.info) for r in tctx.records] == \
@@ -309,8 +312,8 @@ class _Uniforms3:
 def test_orchestrator_select_and_update_match(use_green, use_priority):
     n, k = 20, 5
     jfleet = jcarbon.make_fleet(jax.random.PRNGKey(3), n, 0.35)
-    tfleet = convert.fleet_from_numpy(jfleet)
-    jst, tst = jorch.init_state(n), torch_orch.init_state(n)
+    tfleet = convert.fleet_from_numpy(jfleet, device="cpu")
+    jst, tst = jorch.init_state(n), torch_orch.init_state(n, device="cpu")
     key = jax.random.PRNGKey(11)
     rng = np.random.default_rng(0)
     for rnd in range(12):
@@ -338,7 +341,7 @@ def test_orchestrator_select_and_update_match(use_green, use_priority):
 def test_carbon_intensity_emissions_and_duration_match():
     n = 16
     jfleet = jcarbon.make_fleet(jax.random.PRNGKey(7), n, 0.35)
-    tfleet = convert.fleet_from_numpy(jfleet)
+    tfleet = convert.fleet_from_numpy(jfleet, device="cpu")
     sel = np.zeros(n, bool)
     sel[[1, 4, 5, 11]] = True
     for t_hours, seed in ((0.0, 1), (3.5, 2), (17.25, 3)):

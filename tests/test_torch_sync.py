@@ -94,7 +94,8 @@ def problem():
     trcfg = tresnet.ResNetConfig(name="quickstart", widths=(8, 16), depths=(1, 1),
                                  in_channels=1, num_classes=10)
     params = {n: v.numpy() for n, v in
-              tresnet.init_resnet(torch.Generator().manual_seed(0), trcfg).items()}
+              tresnet.init_resnet(torch.Generator().manual_seed(0), trcfg,
+                                  device="cpu").items()}
     return data, parts, rcfg, params
 
 
@@ -111,7 +112,7 @@ def test_sync_rounds_match_reference(problem, name):
 
     trcfg = tresnet.ResNetConfig(name="quickstart", widths=(8, 16), depths=(1, 1),
                                  in_channels=1, num_classes=10)
-    tparams = convert.params_from_numpy(params)
+    tparams = convert.params_from_numpy(params, device="cpu")
     ttask = tapi.FederatedTask(
         loss_fn=lambda p, b: tresnet.resnet_loss(p, trcfg, b),
         eval_fn=lambda p, b: tresnet.resnet_loss(p, trcfg, b)[1],
@@ -119,7 +120,7 @@ def test_sync_rounds_match_reference(problem, name):
         test_data=data["test"])
     tfed = tapi.Federation(_cfg(tapi, TDPConfig, name), ttask, device="cpu")
     tfed.strategy.draws = JaxReplayDraws(0)
-    tfed.ctx.fleet = convert.fleet_from_numpy(jfed.ctx.fleet)
+    tfed.ctx.fleet = convert.fleet_from_numpy(jfed.ctx.fleet, device="cpu")
     tfed.ctx.round_flops = jfed.ctx.round_flops
     th = tfed.run()
 
