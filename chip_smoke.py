@@ -11,16 +11,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
                main path's shape (k=10, P=4,698,112) and at a ragged shape,
                and time kernel, plain version and (where one exists) a
                PyTorch library call with CUDA events
-  4. agree     a small federation (ResNet widths (8, 16)) on the card and on
-               the CPU from the same draws: same cohorts, close losses
+  4. agree     small federations (ResNet widths (8, 16)) on the card and on
+               the CPU from the same draws: same cohorts, close losses; for
+               gossip, close node rows
   5. main path ``Federation(cfg, task)`` on the default device with full
                ResNet-Tiny on CIFAR-like 32x32x3 data, 50 clients, 10 per
                round, 5 local steps of batch 32: 2 rounds each of the
-               secure-agg, DP (fused) and plain compositions; the kernels'
+               synchronous secure-agg, DP (fused) and plain compositions and
+               of the gossip strategy on a ring and on a carbon-tilted
+               Erdos-Renyi graph (2 mixing passes a round); the kernels'
                launch counters are zeroed before each composition and read
                after it
-  6. profile   one more DP round under ``torch.profiler``: device time by
-               kernel and the device's busy share
+  6. profile   one more DP round and one more gossip round under
+               ``torch.profiler``: device time by kernel and the device's
+               busy share
 
 It then prints the ``kernels`` JSON line and, last, the result line.  It
 imports nothing of JAX or of the JAX package ``repro``.
@@ -41,6 +45,7 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 
 MAIN_K, MAIN_P, MAIN_DIM = 10, 4_698_112, 4_696_394   # ResNet-Tiny cohort rows
 RAGGED_K, RAGGED_P, RAGGED_DIM = 3, 100_003, 99_001
+GOSSIP_RAGGED_K = 7                # a gossip cohort on the ragged P
 SA_CLIP, SA_BITS = 10.0, 20        # PrivacyConfig secure-agg defaults
 DP_CLIP, DP_BITS, DP_SIGMA = 1.0, 18, 0.8
 
@@ -138,6 +143,33 @@ def kernel_phase(torch, ops, ref) -> dict:
                 library_ms=None, bound_ms=b, bound_by=kind)
         del deltas, m, rows, got, want
         torch.cuda.empty_cache()
+    # --- gossip_mix: one mixing pass X <- W X, W of the main path's graphs;
+    # the ragged case tilts W toward green peers, so it is asymmetric
+    from repro_torch.topo import gossip, graph
+
+    for k, P, name in ((MAIN_K, MAIN_P, "ring"), (GOSSIP_RAGGED_K, RAGGED_P, "erdos")):
+        W = graph.plan(name, k, 1, seed=0, p=0.4).mixing
+        if name == "erdos":
+            W = gossip.carbon_reweight(W, [80.0 + 40.0 * i for i in range(k)], 0.5)
+        w = torch.from_numpy(W).to(dev)
+        x = torch.randn((k, P), device=dev, generator=gen)
+        got, want = ops.gossip_mix(x, w), ref.gossip_mix_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # the same products summed in the same order, without FMA: bitwise
+        assert torch.equal(got, want), f"gossip_mix {k}x{P} ({name}) not bitwise: {err}"
+        print(f"[kernels] gossip_mix      k={k} P={P} W={name}"
+              f"{' (carbon-tilted, asymmetric)' if name == 'erdos' else ''}: "
+              f"bitwise (tolerance 0) max_abs_err={err}")
+        if k == MAIN_K:
+            b, kind = _bound(2 * k * P * 4 + k * k * 4, 2 * k * k * P)
+            results["gossip_mix"] = dict(
+                max_abs_err=err, parity="bitwise",
+                ms=_time_ms(lambda: ops.gossip_mix(x, w)),
+                plain_ms=_time_ms(lambda: ref.gossip_mix_ref(x, w)),
+                library_ms=_time_ms(lambda: torch.matmul(w, x)), bound_ms=b, bound_by=kind)
+        del x, got, want
+        torch.cuda.empty_cache()
     for name, r in results.items():
         print(f"[kernels] {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_us={r['bound_ms'] * 1e3:.1f} ({r['bound_by']}) "
@@ -155,8 +187,11 @@ def _task(api, data, parts, rcfg, params, resnet):
 
 
 COMPOSITIONS = ("secure_agg", "dp_fused", "plain")
+GOSSIP = {"gossip_ring": dict(graph="ring", mixing_steps=2),
+          "gossip_erdos": dict(graph="erdos", gossip_p=0.4, mixing_steps=2, carbon_beta=0.5)}
 EXPECTED = {"secure_agg": ("masked_agg",), "dp_fused": ("clip_quant_mask", "masked_agg"),
-            "plain": ("staleness_agg",)}
+            "plain": ("staleness_agg",), "gossip_ring": ("gossip_mix",),
+            "gossip_erdos": ("gossip_mix",)}
 
 
 def _privacy(api, DPConfig, name):
@@ -166,6 +201,23 @@ def _privacy(api, DPConfig, name):
         return api.PrivacyConfig(dp=DPConfig(clip=DP_CLIP, sigma=DP_SIGMA, bits=DP_BITS),
                                  fuse=True)
     return api.PrivacyConfig()
+
+
+def _topology(api, name):
+    if name in GOSSIP:
+        return api.TopologyConfig(mode="gossip", **GOSSIP[name])
+    return api.TopologyConfig()
+
+
+def _main_cfg(api, DPConfig, name, rounds: int, max_eval_batches: int):
+    """The main path's configuration: full ResNet-Tiny, 50 clients, 10 per
+    round, 5 local steps of batch 32, rl_green selection."""
+    return api.ExperimentConfig(
+        training=api.TrainingConfig(n_clients=50, clients_per_round=10, rounds=rounds,
+                                    local_steps=5, batch_size=32, eval_every=1,
+                                    max_eval_batches=max_eval_batches),
+        privacy=_privacy(api, DPConfig, name), topology=_topology(api, name),
+        orchestrator=api.OrchestratorConfig(selection="rl_green"))
 
 
 class _CpuDraws:
@@ -223,6 +275,29 @@ def agree_phase(torch) -> None:
         print(f"[agree] {name}: cohorts {g['selected']} on both devices; "
               f"loss card {g['loss']} cpu {c['loss']}")
 
+    cfg = api.ExperimentConfig(
+        training=api.TrainingConfig(n_clients=6, clients_per_round=4, rounds=2,
+                                    local_steps=2, batch_size=16, eval_every=1),
+        topology=api.TopologyConfig(mode="gossip", graph="ring", mixing_steps=2),
+        orchestrator=api.OrchestratorConfig(selection="random"))
+    hist, rows = {}, {}
+    for device in ("cuda", "cpu"):
+        fed = api.Federation(cfg, _task(api, data, parts, rcfg, params, resnet), device=device)
+        fed.strategy.draws = _CpuDraws(torch, 0, device)
+        hist[device] = fed.run()
+        rows[device] = fed.strategy.node_rows.cpu()
+    g, c = hist["cuda"], hist["cpu"]
+    assert g["selected"] == c["selected"], ("gossip", g["selected"], c["selected"])
+    err = (rows["cuda"] - rows["cpu"]).abs().max().item()
+    # float32 convolutions on two devices differ in the last bits, and two
+    # rounds of local SGD carry that into the node rows
+    assert torch.allclose(rows["cuda"], rows["cpu"], rtol=1e-4, atol=1e-5), err
+    assert all(math.isclose(a, b, rel_tol=1e-3) for a, b in zip(g["loss"], c["loss"])), \
+        ("gossip", g["loss"], c["loss"])
+    print(f"[agree] gossip ring: cohorts {g['selected']} on both devices; node rows "
+          f"max_abs_diff={err:.3e} (allclose rtol=1e-4, atol=1e-5); consensus card "
+          f"{g['consensus']} cpu {c['consensus']}")
+
 
 class _RoundClock:
     """Sink that stamps each round's event after synchronizing the card."""
@@ -249,13 +324,10 @@ def main_path_phase(torch, ops) -> dict:
     parts = dirichlet_partition(data["train"]["label"], 50, 0.5, seed=0)
     params = resnet.init_resnet(torch.Generator().manual_seed(0), CONFIG, device="cuda")
     total = {name: 0 for name in ops.launches}
-    for name in COMPOSITIONS:
-        cfg = api.ExperimentConfig(
-            training=api.TrainingConfig(n_clients=50, clients_per_round=10, rounds=2,
-                                        local_steps=5, batch_size=32, eval_every=1,
-                                        max_eval_batches=2),
-            privacy=_privacy(api, DPConfig, name),
-            orchestrator=api.OrchestratorConfig(selection="rl_green"))
+    peak = 0
+    for name in (*COMPOSITIONS, *GOSSIP):
+        cfg = _main_cfg(api, DPConfig, name, rounds=2, max_eval_batches=2)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         fed = api.Federation(cfg, _task(api, data, parts, CONFIG, params, resnet))
         t_build = time.perf_counter() - t0
@@ -269,23 +341,35 @@ def main_path_phase(torch, ops) -> dict:
         for kname, n in counts.items():
             total[kname] += n
         round_s = [b - a for a, b in zip(clock.stamps, clock.stamps[1:])]
+        gossip = name in GOSSIP
         for r in range(cfg.training.rounds):
+            mix = (f" consensus={hist['consensus'][r]:.6f} "
+                   f"spectral_gap={hist['spectral_gap'][r]:.6f} "
+                   f"mix_bytes={hist['mix_bytes'][r]:.0f}") if gossip else ""
             print(f"[main] {name} round {hist['round'][r]}: loss={hist['loss'][r]:.4f} "
                   f"acc={hist['acc'][r]:.3f} co2_g={hist['co2_g'][r]:.1f} "
                   f"duration_s={hist['duration_s'][r]:.2f} selected={hist['selected'][r]} "
-                  f"wall_s={round_s[r]:.3f}")
+                  f"wall_s={round_s[r]:.3f}{mix}")
+        peak = max(peak, torch.cuda.max_memory_allocated())
         print(f"[main] {name}: pipeline={fed.ctx.pipeline.describe()} "
-              f"build_s={t_build:.2f} round_flops={fed.ctx.round_flops:.6e} launches={counts}")
+              f"build_s={t_build:.2f} round_flops={fed.ctx.round_flops:.6e} launches={counts} "
+              f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}")
         assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
         assert all(len(set(s)) == 10 for s in hist["selected"]), hist["selected"]
+        if gossip:
+            # one kernel launch per mixing pass, and nothing else launches it
+            assert counts["gossip_mix"] == cfg.training.rounds * cfg.topology.mixing_steps, \
+                (name, counts)
+            assert all(math.isfinite(v) and v > 0 for v in hist["consensus"]), hist["consensus"]
+            assert all(0.0 < v <= 1.0 for v in hist["spectral_gap"]), hist["spectral_gap"]
         for kname in EXPECTED[name]:
             assert counts[kname] >= cfg.training.rounds, (name, counts)
-    print(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[main] peak device memory {peak / 2**30:.2f} GiB")
     return total
 
 
-def profile_phase(torch) -> None:
-    """One DP round of the main path under torch.profiler."""
+def profile_phase(torch, name: str) -> None:
+    """One round of composition ``name`` of the main path under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,11 +383,7 @@ def profile_phase(torch) -> None:
     data = make_image_dataset(CIFAR_LIKE, seed=0, n_train=12_500, n_test=256)
     parts = dirichlet_partition(data["train"]["label"], 50, 0.5, seed=0)
     params = resnet.init_resnet(torch.Generator().manual_seed(0), CONFIG, device="cuda")
-    cfg = api.ExperimentConfig(
-        training=api.TrainingConfig(n_clients=50, clients_per_round=10, rounds=1,
-                                    local_steps=5, batch_size=32, max_eval_batches=1),
-        privacy=_privacy(api, DPConfig, "dp_fused"),
-        orchestrator=api.OrchestratorConfig(selection="rl_green"))
+    cfg = _main_cfg(api, DPConfig, name, rounds=1, max_eval_batches=1)
 
     def timed_run(fed) -> float:
         torch.cuda.synchronize()
@@ -320,11 +400,12 @@ def profile_phase(torch) -> None:
         wall_profiled = timed_run(fed)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernel_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"[profile] one DP round with its two evaluations: wall_s={wall:.3f} "
+    print(f"[profile] one {name} round with its two evaluations: wall_s={wall:.3f} "
           f"(profiled {wall_profiled:.3f}) device_kernel_s={kernel_s:.3f} "
           f"busy_share={kernel_s / wall:.3f} kernel_launches={sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  {e.key[:90]}")
+        print(f"[profile]   {name}: {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
 
 
 def main() -> int:
@@ -352,14 +433,17 @@ def main() -> int:
     results = kernel_phase(torch, ops, ref)
     agree_phase(torch)
     launches = main_path_phase(torch, ops)
-    profile_phase(torch)
+    profile_phase(torch, "dp_fused")
+    profile_phase(torch, "gossip_ring")
 
     sources = {"staleness_agg": ("src/repro_torch/kernels/csrc/staleness_agg.cu",
                                  "src/repro/kernels/staleness_agg.py:37"),
                "masked_agg": ("src/repro_torch/kernels/csrc/masked_agg.cu",
                               "src/repro/kernels/masked_agg.py:34"),
                "clip_quant_mask": ("src/repro_torch/kernels/csrc/clip_quant_mask.cu",
-                                   "src/repro/kernels/compress.py:59")}
+                                   "src/repro/kernels/compress.py:59"),
+               "gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
+                              "src/repro/kernels/gossip_mix.py:40")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name], **results[name]}

@@ -10,6 +10,7 @@ from repro_torch.api.config import (CarbonConfig, CheckpointConfig, EngineConfig
                                     ExperimentConfig, OrchestratorConfig, PrivacyConfig,
                                     TopologyConfig, TrainingConfig)
 from repro_torch.api.federation import STRATEGIES, Federation
+from repro_torch.api.gossip import GossipStrategy
 from repro_torch.api.pipeline import (AggregationContext, ClipStage, FusedCompressStage,
                                       MaskStage, NoiseStage, PrivacyPipeline, QuantizeStage,
                                       ScaleStage, StageRecord, build_pipeline,
@@ -17,15 +18,15 @@ from repro_torch.api.pipeline import (AggregationContext, ClipStage, FusedCompre
                                       upload_bytes_per_client)
 from repro_torch.api.runtime import FederatedTask, RuntimeContext
 from repro_torch.api.sync import SyncStrategy
-from repro_torch.api.telemetry import (CallbackSink, ConsoleSink, HistoryRecorder, RoundEvent,
-                                       TelemetrySink)
+from repro_torch.api.telemetry import (CallbackSink, ConsoleSink, HistoryRecorder, MixEvent,
+                                       RoundEvent, TelemetrySink)
 
 __all__ = [
-    "AggregationContext", "build_pipeline", "CallbackSink", "CarbonConfig",
-    "CheckpointConfig", "ClipStage", "cohort_wire_bytes", "ConsoleSink", "EngineConfig",
-    "ExperimentConfig", "Federation", "FederatedTask", "fuse_pipeline", "FusedCompressStage",
-    "HistoryRecorder", "MaskStage", "NoiseStage", "OrchestratorConfig", "PrivacyConfig",
-    "PrivacyPipeline", "QuantizeStage", "RoundEvent", "RuntimeContext", "ScaleStage",
-    "StageRecord", "STRATEGIES", "SyncStrategy", "TelemetrySink", "TopologyConfig",
-    "TrainingConfig", "upload_bytes_per_client",
+    "AggregationContext", "build_pipeline", "CallbackSink", "CarbonConfig", "CheckpointConfig",
+    "ClipStage", "cohort_wire_bytes", "ConsoleSink", "EngineConfig", "ExperimentConfig",
+    "Federation", "FederatedTask", "fuse_pipeline", "FusedCompressStage", "GossipStrategy",
+    "HistoryRecorder", "MaskStage", "MixEvent", "NoiseStage", "OrchestratorConfig",
+    "PrivacyConfig", "PrivacyPipeline", "QuantizeStage", "RoundEvent", "RuntimeContext",
+    "ScaleStage", "StageRecord", "STRATEGIES", "SyncStrategy", "TelemetrySink",
+    "TopologyConfig", "TrainingConfig", "upload_bytes_per_client",
 ]

@@ -2,14 +2,17 @@
 
     history = Federation(cfg, task, device="cuda").run()
 
-runs the synchronous strategy end to end on ``device``.  The default is
-the GPU; a machine without one raises unless the caller asks for
-``device="cpu"``, where every kernel wrapper computes its plain version.
-On the GPU, TF32 is switched off for matrix products and cuDNN
-convolutions so that float32 means float32, as in the reference.
+runs the strategy ``cfg.topology.mode`` names (``"sync"`` or ``"gossip"``)
+end to end on ``device``.  The default is the GPU; a machine without one
+raises unless the caller asks for ``device="cpu"``, where every kernel
+wrapper computes its plain version.  On the GPU, TF32 is switched off for
+matrix products and cuDNN convolutions so that float32 means float32, as in
+the reference.
 
-Not ported yet, and refused here: the ``async_hier`` and ``gossip``
-strategies, the sharded cohort, trace-driven engines and checkpointing.
+Not ported yet, and refused here: the ``async_hier`` strategy, the sharded
+cohort, trace-driven engines (and with them gossip's time-budgeted mixing
+waves) and checkpointing.  A strategy's own ``validate`` runs first, so a
+configuration the reference rejects is rejected with the reference's error.
 """
 from __future__ import annotations
 
@@ -18,12 +21,13 @@ from typing import Callable, Iterable, Optional, Union
 import torch
 
 from repro_torch.api.config import ExperimentConfig
+from repro_torch.api.gossip import GossipStrategy
 from repro_torch.api.pipeline import PrivacyPipeline
 from repro_torch.api.runtime import FederatedTask, RuntimeContext
 from repro_torch.api.sync import SyncStrategy
 from repro_torch.api.telemetry import CallbackSink, HistoryRecorder, RoundEvent, TelemetrySink
 
-STRATEGIES: dict[str, Callable] = {"sync": SyncStrategy}
+STRATEGIES: dict[str, Callable] = {"sync": SyncStrategy, "gossip": GossipStrategy}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -41,8 +45,6 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    if cfg.topology.mode not in STRATEGIES:
-        raise NotImplementedError(f"strategy {cfg.topology.mode!r} is not ported yet")
     if cfg.training.sharded:
         raise NotImplementedError("the sharded cohort is not ported yet")
     if cfg.engine.trace:
@@ -61,7 +63,8 @@ class Federation:
         self.cfg = cfg
         self.task = task
         self.device = resolve_device(device)
-        _refuse_unported(cfg)
+        if cfg.topology.mode not in STRATEGIES:
+            raise NotImplementedError(f"strategy {cfg.topology.mode!r} is not ported yet")
         if strategy is None:
             strategy = cfg.topology.mode
         if isinstance(strategy, str):
@@ -70,6 +73,7 @@ class Federation:
             strategy = STRATEGIES[strategy]()
         self.strategy = strategy
         self.strategy.validate(cfg)
+        _refuse_unported(cfg)
         self.ctx = RuntimeContext(cfg, task, device=self.device, pipeline=privacy,
                                   selector=selector)
         self.strategy.setup(self.ctx)

@@ -71,10 +71,12 @@ class RuntimeContext:
 
         params0 = {n: p.to(device=device, dtype=torch.float32) for n, p in task.params0.items()}
         self.pspace = ParamSpace.build(params0)
-        local_opt = opt_mod.momentum(train.client_lr, beta=train.client_momentum)
-        self.trainer = client_mod.make_local_trainer(task.loss_fn, local_opt)
-        self.cohort_trainer = client_mod.make_cohort_trainer(task.loss_fn, local_opt,
+        self.loss_fn = task.loss_fn
+        self.local_opt = opt_mod.momentum(train.client_lr, beta=train.client_momentum)
+        self.trainer = client_mod.make_local_trainer(task.loss_fn, self.local_opt)
+        self.cohort_trainer = client_mod.make_cohort_trainer(task.loss_fn, self.local_opt,
                                                              self.pspace)
+        self._row_trainer = None  # gossip's per-node trainer, built at first use
         self.server_state, self.server_apply = server_mod.make_server(
             train.algorithm, params0, train.server_lr)
         # drawn on the CPU so one seed gives one fleet on every device
@@ -96,9 +98,9 @@ class RuntimeContext:
                 for k, v in arrays.items()}
 
     # ------------------------------------------------------------------
-    def train_cohort(self, params, sel, step: int) -> client_mod.CohortResult:
-        """One local round of every selected client against ``params``;
-        ``step`` seeds the clients' batch schedule."""
+    def _cohort_inputs(self, sel, step: int) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """The selected clients' stacked step batches (``step`` seeds their
+        batch schedule) and their FedProx adaptive mus, on the run's device."""
         train = self.train
         batch_l = [self.clients[ci].stacked_steps(train.batch_size, train.local_steps, step)
                    for ci in sel]
@@ -108,7 +110,21 @@ class RuntimeContext:
             mus = client_mod.adaptive_mu(train.prox_mu, self.fleet.capability[idx])
         else:
             mus = torch.zeros(len(sel), dtype=torch.float32, device=self.device)
-        return self.cohort_trainer(params, batches, mus)
+        return batches, mus
+
+    def train_cohort(self, params, sel, step: int) -> client_mod.CohortResult:
+        """One local round of every selected client against ``params``."""
+        return self.cohort_trainer(params, *self._cohort_inputs(sel, step))
+
+    def train_cohort_rows(self, param_rows: torch.Tensor, sel,
+                          step: int) -> client_mod.CohortResult:
+        """One local round of every selected client from its OWN model, the
+        (k, dim) rows of the gossip strategy's node states; the batch
+        schedule and FedProx mus of :meth:`train_cohort`."""
+        if self._row_trainer is None:
+            self._row_trainer = client_mod.make_gossip_cohort_trainer(
+                self.loss_fn, self.local_opt, self.pspace)
+        return self._row_trainer(param_rows, *self._cohort_inputs(sel, step))
 
     def aggregate(self, rows: torch.Tensor, weights, draws) -> tuple[torch.Tensor, list[StageRecord]]:
         """Run the privacy pipeline over (k, P) delta rows -> (MEAN row, records)."""

@@ -1,6 +1,6 @@
-"""Typed telemetry stream (port of the synchronous part of
-``repro.api.telemetry``): one :class:`RoundEvent` per round, consumed by
-sinks (anything with ``emit(event)``)."""
+"""Typed telemetry stream (port of the synchronous and gossip parts of
+``repro.api.telemetry``): one :class:`RoundEvent` (a :class:`MixEvent` for
+gossip) per round, consumed by sinks (anything with ``emit(event)``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +34,29 @@ class RoundEvent:
         }
 
 
+@dataclasses.dataclass(frozen=True)
+class MixEvent(RoundEvent):
+    """One decentralized gossip round: local training + neighbor mixing.
+
+    ``consensus`` is the fleet-wide disagreement (mean L2 distance of node
+    models to their average) after this round's mixing passes;
+    ``spectral_gap`` is 1 - SLEM of the mixing matrix actually applied
+    (carbon reweighting included); ``mix_bytes`` counts the network bytes
+    the round's mixing moved (2 directed row transfers per graph edge per
+    step)."""
+
+    consensus: float = 0.0
+    spectral_gap: float = 0.0
+    mix_steps: int = 0       # mixing passes applied this round
+    mix_bytes: float = 0.0   # total bytes over all passes
+
+    def history_row(self) -> dict:
+        row = super().history_row()
+        row.update(consensus=self.consensus, spectral_gap=self.spectral_gap,
+                   mix_steps=self.mix_steps, mix_bytes=self.mix_bytes)
+        return row
+
+
 @runtime_checkable
 class TelemetrySink(Protocol):
     def emit(self, event: RoundEvent) -> None: ...
@@ -43,11 +66,16 @@ SYNC_HISTORY_KEYS = (
     "round", "acc", "co2_g", "cum_co2_g", "duration_s",
     "reward", "loss", "eps_spent", "selected",
 )
+GOSSIP_HISTORY_KEYS = SYNC_HISTORY_KEYS + (
+    "consensus", "spectral_gap", "mix_steps", "mix_bytes",
+)
 
 
 class HistoryRecorder:
     """Rebuilds the reference's history dict from the event stream; the
-    schema is fixed by ``keys`` (a missing column is filled with None)."""
+    schema is fixed by ``keys``: a column the event does not carry (say
+    ``consensus`` from a plain :class:`RoundEvent`) is filled with None,
+    and a column beyond the schema is dropped."""
 
     def __init__(self, keys: Iterable[str] = SYNC_HISTORY_KEYS):
         self.history: dict = {k: [] for k in keys}

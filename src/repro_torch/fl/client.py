@@ -64,6 +64,23 @@ def make_local_trainer(loss_fn: Callable, opt: Optimizer) -> Callable:
     return run
 
 
+def _run_cohort(single: Callable, pspace: ParamSpace, start: Callable[[int], Params],
+                batches: dict, mus: torch.Tensor, device: torch.device) -> CohortResult:
+    """One local round per cohort member j from the model ``start(j)``, its
+    delta written into row j of a (k, dim) float32 matrix."""
+    k = mus.shape[0]
+    rows = torch.empty((k, pspace.dim), dtype=torch.float32, device=device)
+    n_steps, first, last = [], [], []
+    for j in range(k):
+        res = single(start(j), {n: v[j] for n, v in batches.items()}, mus[j])
+        pspace.ravel_into(rows[j], res.delta)
+        n_steps.append(res.n_steps)
+        first.append(res.loss_first)
+        last.append(res.loss_last)
+    return CohortResult(rows, torch.tensor(n_steps, dtype=torch.int32),
+                        torch.stack(first), torch.stack(last))
+
+
 def make_cohort_trainer(loss_fn: Callable, opt: Optimizer, pspace: ParamSpace) -> Callable:
     """run(params_global, batches, mus) -> CohortResult, one local round per
     selected client against the shared ``params_global``; ``batches`` has a
@@ -71,18 +88,24 @@ def make_cohort_trainer(loss_fn: Callable, opt: Optimizer, pspace: ParamSpace) -
     single = make_local_trainer(loss_fn, opt)
 
     def run(params_global: Params, batches: dict, mus: torch.Tensor) -> CohortResult:
-        k = mus.shape[0]
         device = next(iter(params_global.values())).device
-        rows = torch.empty((k, pspace.dim), dtype=torch.float32, device=device)
-        n_steps, first, last = [], [], []
-        for j in range(k):
-            res = single(params_global, {n: v[j] for n, v in batches.items()}, mus[j])
-            pspace.ravel_into(rows[j], res.delta)
-            n_steps.append(res.n_steps)
-            first.append(res.loss_first)
-            last.append(res.loss_last)
-        return CohortResult(rows, torch.tensor(n_steps, dtype=torch.int32),
-                            torch.stack(first), torch.stack(last))
+        return _run_cohort(single, pspace, lambda j: params_global, batches, mus, device)
+
+    return run
+
+
+def make_gossip_cohort_trainer(loss_fn: Callable, opt: Optimizer, pspace: ParamSpace) -> Callable:
+    """run(param_rows, batches, mus) -> CohortResult for decentralized
+    strategies: the contract of :func:`make_cohort_trainer`, except that
+    client j starts from its own model ``pspace.unravel(param_rows[j])``
+    ((k, dim) rows, the representation the gossip mixing passes act on)
+    and writes its delta into row j.  With identical rows it is
+    :func:`make_cohort_trainer` on that model."""
+    single = make_local_trainer(loss_fn, opt)
+
+    def run(param_rows: torch.Tensor, batches: dict, mus: torch.Tensor) -> CohortResult:
+        return _run_cohort(single, pspace, lambda j: pspace.unravel(param_rows[j]), batches,
+                           mus, param_rows.device)
 
     return run
 

@@ -33,8 +33,9 @@ _SIGNATURES = {
     ("clip_quant_mask", "rt_clip_quant_mask"):
         (_i, (_p, _p, _p, _p, _i, _ll, _ll, _f, _f, _i, _p)),
     ("clip_quant_mask", "rt_clip_quant_mask_tiles"): (_ll, (_ll,)),
+    ("gossip_mix", "rt_gossip_mix"): (_i, (_p, _p, _p, _i, _ll, _i, _p)),
 }
-KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask")
+KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # kernel -> nvcc's output (ptxas register/spill report)

@@ -133,3 +133,29 @@ def clip_quant_mask(rows: torch.Tensor, masks: torch.Tensor, clip: float, bits: 
     _raise_on(err, "clip_quant_mask")
     launches["clip_quant_mask"] += 1
     return out
+
+
+# kMaxK of csrc/gossip_mix.cu: W in shared memory, a column's k inputs in registers
+GOSSIP_MAX_K = 64
+
+
+def gossip_mix(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
+    """(k, P) float32 rows, (k, k) float32 mixing matrix -> (k, P) W @ rows,
+    out of place; 1 <= k <= ``GOSSIP_MAX_K`` on every device."""
+    if rows.ndim != 2:
+        raise ValueError(f"rows must be (k, P), got {tuple(rows.shape)}")
+    k, P = rows.shape
+    _check(rows, "rows", torch.float32, (k, P), rows.device)
+    _check(mixing, "mixing", torch.float32, (k, k), rows.device)
+    if not 0 < k <= GOSSIP_MAX_K:
+        raise ValueError(f"gossip_mix takes 1 to {GOSSIP_MAX_K} rows, got k={k}")
+    if not _route(rows):
+        return ref.gossip_mix_ref(rows, mixing)
+    out = torch.empty((k, P), dtype=torch.float32, device=rows.device)
+    if P == 0:
+        return out
+    err = _build.lib("gossip_mix").rt_gossip_mix(
+        mixing.data_ptr(), rows.data_ptr(), out.data_ptr(), k, P, _vec(P, rows, out), _stream())
+    _raise_on(err, "gossip_mix")
+    launches["gossip_mix"] += 1
+    return out

@@ -39,6 +39,21 @@ def staleness_aggregate_ref(deltas: torch.Tensor, weights: torch.Tensor) -> torc
     return (deltas.to(torch.float32) * weights.to(torch.float32)[:, None]).sum(0)
 
 
+def gossip_mix_ref(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
+    """(k, P) float32 rows, (k, k) mixing matrix -> (k, P) W @ rows.
+
+    Summed as the kernel sums: out[i] = Σ_j W[i, j]·rows[j] in the order
+    j = 0..k-1, each product and each sum rounded on its own (no FMA), so
+    the two agree bitwise on the card.
+    """
+    rows = rows.to(torch.float32)
+    w = mixing.to(device=rows.device, dtype=torch.float32)
+    out = w[:, :1] * rows[:1]
+    for j in range(1, rows.shape[0]):
+        out = out + w[:, j:j + 1] * rows[j:j + 1]
+    return out
+
+
 def masked_aggregate_ref(masked: torch.Tensor, masks: torch.Tensor, clip: float,
                          bits: int) -> torch.Tensor:
     """(k, P) int32 ciphertexts and pads -> (P,) float32 decoded ring sum.

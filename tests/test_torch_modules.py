@@ -385,5 +385,5 @@ def test_federation_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.Federation(tapi.ExperimentConfig(), task=None)
     with pytest.raises(NotImplementedError):
-        tapi.Federation(tapi.ExperimentConfig(topology=tapi.TopologyConfig(mode="gossip")),
+        tapi.Federation(tapi.ExperimentConfig(topology=tapi.TopologyConfig(mode="async_hier")),
                         task=None, device="cpu")
