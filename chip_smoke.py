@@ -10,7 +10,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernels   hold each kernel against its plain version on the card at the
                main path's shape (k=10, P=4,698,112) and at a ragged shape,
                and time kernel, plain version and (where one exists) a
-               PyTorch library call with CUDA events
+               PyTorch library call with CUDA events; ``flash_attention`` at
+               qwen2-0.5b's layer shape (1, 4096, 14 / 2 heads, 64) in bf16
+               and at the eight cases of the reference's kernel tests in
+               float32 and bf16, timed against its plain version and
+               ``scaled_dot_product_attention`` at 4096 and (kernel and
+               library only) 32768 positions
   4. agree     small federations (ResNet widths (8, 16)) on the card and on
                the CPU from the same draws: same cohorts, close losses; for
                gossip, close node rows
@@ -25,6 +30,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. profile   one more DP round and one more gossip round under
                ``torch.profiler``: device time by kernel and the device's
                busy share
+  7. llm       qwen2-0.5b at full width and depth (494,032,768 parameters,
+               bf16, random weights from a seed): a flash prefill of 4 x 2048
+               tokens (``forward(..., use_flash=True)``, counters zeroed
+               around it: 24 ``flash_attention`` launches) held against the
+               plain-attention prefill (``make_prefill_step``); then serving
+               as ``examples/serve_decode.py`` does: a 64-token prompt fed
+               through ``make_decode_step``, 16 greedy tokens, the prompt's
+               decode logits held against its flash prefill; rates, peak
+               memory, and one flash prefill under ``torch.profiler``
 
 It then prints the ``kernels`` JSON line and, last, the result line.  It
 imports nothing of JAX or of the JAX package ``repro``.
@@ -42,6 +56,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 MAIN_K, MAIN_P, MAIN_DIM = 10, 4_698_112, 4_696_394   # ResNet-Tiny cohort rows
 RAGGED_K, RAGGED_P, RAGGED_DIM = 3, 100_003, 99_001
@@ -67,9 +82,10 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def _bound(bytes_moved: float, ops: float,
+           ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -408,6 +424,224 @@ def profile_phase(torch, name: str) -> None:
               f"{e.key[:90]}")
 
 
+# (B, T, S, H, K, hd, causal, window, cap): the eight cases of the reference's
+# kernel tests (tests/test_kernels.py)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None, 0.0),
+    (1, 100, 100, 4, 4, 32, True, None, 0.0),
+    (2, 256, 256, 4, 2, 64, True, 64, 0.0),
+    (2, 128, 128, 8, 2, 64, True, 256, 0.0),
+    (1, 128, 128, 4, 1, 64, False, None, 0.0),
+    (2, 128, 128, 4, 2, 64, True, None, 30.0),
+    (1, 64, 64, 2, 2, 80, True, None, 0.0),
+    (1, 72, 72, 3, 1, 48, True, 17, 8.0),
+]
+QWEN2_HEADS, QWEN2_KV, QWEN2_HD = 14, 2, 64
+FLASH_F32_ATOL = 2e-5
+# below about 2^-12 a bf16 ulp (2^-20) is no longer far above the float32
+# rounding of the kernel's and the plain version's sums
+FLASH_BF16_FLOOR = 1e-6
+
+
+def _bf16_ulp(torch, x):
+    """The bf16 ulp at each value of the bf16 tensor ``x``, as float32."""
+    e = torch.frexp(x.float().abs()).exponent  # |x| in [2^(e-1), 2^e)
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
+
+
+def _flash_check(torch, ops, ref, case, dtype, gen) -> float:
+    """The kernel against its plain version on one case; returns max abs err."""
+    B, T, S, H, K, hd, causal, window, cap = case
+    q = torch.randn((B, T, H, hd), device=gen.device, generator=gen).to(dtype)
+    k = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
+    v = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, logit_cap=cap)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        limit = torch.full_like(diff, FLASH_F32_ATOL)
+    else:
+        limit = torch.clamp_min(_bf16_ulp(torch, want), FLASH_BF16_FLOOR)
+    bad = int((diff > limit).sum())
+    assert bad == 0, f"flash_attention {case} {dtype}: {bad} values off, max {diff.max().item()}"
+    return diff.max().item()
+
+
+def _causal_flops(B, T, H, hd) -> float:
+    """QK^T and PV over the T(T+1)/2 (query, key) pairs a causal mask keeps."""
+    return 4.0 * B * H * hd * T * (T + 1) / 2
+
+
+def flash_kernel_phase(torch, ops, ref) -> dict:
+    """``flash_attention`` against its plain version, and its times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = [_flash_check(torch, ops, ref, case, dtype, gen) for case in FLASH_CASES]
+        limit = (f"<= {FLASH_F32_ATOL}" if dtype == torch.float32 else
+                 f"<= 1 bf16 ulp of the plain result (floor {FLASH_BF16_FLOOR})")
+        print(f"[kernels] flash_attention {str(dtype)[6:]} on the 8 reference cases: "
+              f"max_abs_err {max(errs):.3e} ({limit}); per case "
+              + " ".join(f"{e:.2e}" for e in errs))
+    result = {}
+    for T in (4096, 32768):
+        shape = (1, T, T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True, None, 0.0)
+        q = torch.randn((1, T, QWEN2_HEADS, QWEN2_HD), device="cuda", generator=gen).bfloat16()
+        k = torch.randn((1, T, QWEN2_KV, QWEN2_HD), device="cuda", generator=gen).bfloat16()
+        v = torch.randn((1, T, QWEN2_KV, QWEN2_HD), device="cuda", generator=gen).bfloat16()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, out written
+        bound, kind = _bound(nbytes, _causal_flops(1, T, QWEN2_HEADS, QWEN2_HD), BF16_OPS_PER_S)
+        reps = 20 if T == 4096 else 3
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=reps, warmup=1)
+        lib_ms = _time_ms(lib, reps=20)
+        vs_lib = (ops.flash_attention(q, k, v, causal=True) - lib().transpose(1, 2)).float()
+        line = (f"[kernels] flash_attention (1, {T}, {QWEN2_HEADS}/{QWEN2_KV}, {QWEN2_HD}) bf16 "
+                f"causal: kernel_ms={ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bound:.4f} ({kind}) "
+                f"max_abs_diff_vs_sdpa={vs_lib.abs().max().item():.3e}")
+        if T == 4096:
+            err = _flash_check(torch, ops, ref, shape, torch.bfloat16, gen)
+            plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), reps=10)
+            print(f"{line} plain_ms={plain_ms:.4f}; max_abs_err vs plain {err:.3e} "
+                  f"(<= 1 bf16 ulp, floor {FLASH_BF16_FLOOR})")
+            result.update(max_abs_err=err, parity="1 bf16 ulp (f32: 2e-5)", ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=kind)
+        else:
+            print(f"{line} (plain version not run: its scores would take "
+                  f"{4 * QWEN2_HEADS * T * T / 2**30:.0f} GiB)")
+            result.update(ms_32k=ms, library_ms_32k=lib_ms, bound_ms_32k=bound)
+        del q, k, v, qt, kt, vt, vs_lib
+        torch.cuda.empty_cache()
+    return result
+
+
+LLM_ARCH = "qwen2-0.5b"
+LLM_PARAMS = 494_032_768        # init_model's tree, 27,648 qkv biases above param_count()
+PREFILL_B, PREFILL_T = 4, 2048
+PROMPT_T, NEW_TOKENS = 64, 16
+# flash against plain attention, bf16 through 24 layers: each layer's
+# attention output may differ by 1 bf16 ulp, which the residual stream carries on
+LOGIT_REL_TOL = 0.05            # max |logit diff| / max |logit|
+ARGMAX_AGREE_MIN = 0.9          # share of positions whose argmax agrees
+
+
+def _logit_agreement(a, b) -> tuple[float, float, float]:
+    """(max abs diff, that over max |b|, share of equal argmaxes)."""
+    err = (a - b).abs().max().item()
+    return err, err / b.abs().max().item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+
+def llm_phase(torch, ops) -> dict:
+    """qwen2-0.5b prefill and decode on the card; returns kernel -> launches
+    of its flash prefill."""
+    from repro_torch.configs import base
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    cfg = base.get(LLM_ARCH)
+    params = tf.init_model(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n = sum(t.numel() for tree in (params, params["blocks"]) for t in tree.values()
+            if isinstance(t, torch.Tensor))
+    assert n == LLM_PARAMS, n
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), device="cuda", generator=gen,
+                           dtype=torch.int32)
+    batch = {"tokens": tokens}
+
+    def prefill(use_flash: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = tf.forward(params, cfg, batch, use_flash=use_flash)
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    prefill(True)  # first use: cuBLAS handles and workspaces
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    flash, t_flash = prefill(True)
+    counts = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert all(v == 0 for k, v in counts.items() if k != "flash_attention"), counts
+    assert flash.shape == (PREFILL_B, PREFILL_T, cfg.vocab) and bool(torch.isfinite(flash).all())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = serve.make_prefill_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    err, rel, agree = _logit_agreement(flash, plain)
+    n_tok = PREFILL_B * PREFILL_T
+    print(f"[llm] {LLM_ARCH}: {n:,} parameters, bf16, {cfg.n_layers} layers; prefill "
+          f"{PREFILL_B} x {PREFILL_T}: flash {t_flash * 1e3:.2f} ms "
+          f"({n_tok / t_flash:.0f} tokens/s), plain attention {t_plain * 1e3:.2f} ms ({n_tok / t_plain:.0f} tokens/s); "
+          f"launches {counts}; peak_mem_gib={peak / 2**30:.3f}")
+    print(f"[llm] flash vs plain prefill logits: max_abs_diff={err:.4e} rel={rel:.4e} "
+          f"(limit {LOGIT_REL_TOL}) argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN}); "
+          f"max |logit| {plain.abs().max().item():.4f}")
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE_MIN, (rel, agree)
+    del flash, plain
+    torch.cuda.empty_cache()
+
+    # serving, as examples/serve_decode.py: the prompt through decode, then greedy
+    prompt = tokens[:, :PROMPT_T].contiguous()
+    step = serve.make_decode_step(cfg)
+    state = tf.init_decode_state(cfg, PREFILL_B, PROMPT_T + NEW_TOKENS, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for t in range(PROMPT_T):
+        logits, state = step(params, prompt[:, t:t + 1], state)
+        outs.append(logits[:, 0])
+    torch.cuda.synchronize()
+    t_prompt = time.perf_counter() - t0
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    new = []
+    t0 = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        new.append(tok)
+        logits, state = step(params, tok, state)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    assert int(state["pos"]) == PROMPT_T + NEW_TOKENS and bool(torch.isfinite(logits).all())
+    ops.reset_launches()
+    prompt_logits, _ = tf.forward(params, cfg, {"tokens": prompt}, use_flash=True)
+    assert ops.launches["flash_attention"] == cfg.n_layers, ops.launches
+    err, rel, agree = _logit_agreement(torch.stack(outs, 1), prompt_logits)
+    print(f"[llm] decode: prompt {PREFILL_B} x {PROMPT_T} through decode_step in "
+          f"{t_prompt:.3f} s, {NEW_TOKENS} greedy tokens x {PREFILL_B} in {t_decode:.3f} s "
+          f"({NEW_TOKENS * PREFILL_B / t_decode:.1f} tokens/s, "
+          f"{t_decode / NEW_TOKENS * 1e3:.2f} ms a step); sample {torch.cat(new, 1)[0].tolist()}")
+    print(f"[llm] decode vs flash prefill of the prompt: max_abs_diff={err:.4e} rel={rel:.4e} "
+          f"(limit {LOGIT_REL_TOL}) argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN})")
+    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE_MIN, (rel, agree)
+
+    # one flash prefill under the profiler: device time by kernel, busy share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, t_prof = prefill(True)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"[profile] one flash prefill {PREFILL_B} x {PREFILL_T}: wall_s={t_flash:.4f} "
+          f"(profiled {t_prof:.4f}) device_kernel_s={kernel_s:.4f} "
+          f"busy_share={kernel_s / t_flash:.3f} kernel_launches={sum(e.count for e in kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   prefill: {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+    print(f"[llm] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since the prefill's reset")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -431,10 +665,12 @@ def main() -> int:
     print(card.stdout.strip().splitlines()[0])
 
     results = kernel_phase(torch, ops, ref)
+    results["flash_attention"] = flash_kernel_phase(torch, ops, ref)
     agree_phase(torch)
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")
     profile_phase(torch, "gossip_ring")
+    launches["flash_attention"] = llm_phase(torch, ops)["flash_attention"]
 
     sources = {"staleness_agg": ("src/repro_torch/kernels/csrc/staleness_agg.cu",
                                  "src/repro/kernels/staleness_agg.py:37"),
@@ -443,7 +679,9 @@ def main() -> int:
                "clip_quant_mask": ("src/repro_torch/kernels/csrc/clip_quant_mask.cu",
                                    "src/repro/kernels/compress.py:59"),
                "gossip_mix": ("src/repro_torch/kernels/csrc/gossip_mix.cu",
-                              "src/repro/kernels/gossip_mix.py:40")}
+                              "src/repro/kernels/gossip_mix.py:40"),
+               "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:84")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name], **results[name]}

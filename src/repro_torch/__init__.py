@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the MetaFed reproduction.
 
 The JAX package ``repro`` is the reference; this package re-implements its
-synchronous federated round in PyTorch, with the Pallas aggregation kernels
-rewritten by hand in CUDA C++ for Hopper (``repro_torch.kernels``).  It
-imports neither ``jax`` nor anything of ``repro``.
+synchronous federated round, its gossip strategy and the serving path of
+its LLM zoo (dense, vlm and audio families) in PyTorch, with the Pallas
+kernels rewritten by hand in CUDA C++ for Hopper (``repro_torch.kernels``).
+It imports neither ``jax`` nor anything of ``repro``.
 """

@@ -34,8 +34,10 @@ _SIGNATURES = {
         (_i, (_p, _p, _p, _p, _i, _ll, _ll, _f, _f, _i, _p)),
     ("clip_quant_mask", "rt_clip_quant_mask_tiles"): (_ll, (_ll,)),
     ("gossip_mix", "rt_gossip_mix"): (_i, (_p, _p, _p, _i, _ll, _i, _p)),
+    ("flash_attention", "rt_flash_attention"):
+        (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _i, _p)),
 }
-KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix")
+KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix", "flash_attention")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # kernel -> nvcc's output (ptxas register/spill report)

@@ -1,6 +1,7 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its output
+Each wrapper checks device, dtype, shape and contiguity (``flash_attention``:
+strides, with a contiguous last dimension), allocates its output
 with ``torch.empty`` and, for a CUDA tensor, launches its kernel on the
 current stream (``csrc/*.cu``, built at first use by ``_build``).  For a
 tensor on the CPU it computes the kernel's plain version (``ref``); any other
@@ -158,4 +159,58 @@ def gossip_mix(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
         mixing.data_ptr(), rows.data_ptr(), out.data_ptr(), k, P, _vec(P, rows, out), _stream())
     _raise_on(err, "gossip_mix")
     launches["gossip_mix"] += 1
+    return out
+
+
+# head dims instantiated in csrc/flash_attention.cu: those of every config (32 when reduced)
+FLASH_HEAD_DIMS = (32, 48, 64, 80, 128, 256)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: Optional[int] = None, logit_cap: float = 0.0) -> torch.Tensor:
+    """Attention with GQA: q (B, T, H, hd), k and v (B, S, K, hd), float32 or
+    bfloat16, H % K == 0 -> (B, T, H, hd) in q's dtype.
+
+    Query t sees key s when s <= t (``causal``) and s > t - ``window``; scores
+    are ``logit_cap * tanh(s / logit_cap)`` when ``logit_cap > 0``; a row with
+    no valid key gives zeros.  The inputs are read through their strides
+    (the last dimension must be contiguous), so the (B, T, H, hd) layout
+    needs no transposing copy.
+    """
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"q and k must be (B, T, H, hd) and (B, S, K, hd), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q: dtype {q.dtype}, expected float32 or bfloat16")
+    if k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"k: shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if H % K:
+        raise ValueError(f"{H} query heads are not a multiple of {K} KV heads")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {FLASH_HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device or tuple(t.shape) != (B, S, K, hd):
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                             f"{q.dtype} {(B, S, K, hd)} on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+    if not _route(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
+    out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    step = 16 // q.element_size()  # elements per 16-byte load
+    vec = int(all(t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:3])
+                  for t in (q, k, v)))
+    err = _build.lib("flash_attention").rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H, K, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), window or 0,
+        hd ** -0.5, float(logit_cap), int(q.dtype == torch.bfloat16), vec, _stream())
+    _raise_on(err, "flash_attention")
+    launches["flash_attention"] += 1
     return out

@@ -17,6 +17,7 @@ import torch
 
 _TWO31 = 1 << 31
 _RING_MASK = (1 << 32) - 1
+NEG_INF = -1e30  # masked attention score, as the Pallas kernel's
 
 
 def ring_to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -93,3 +94,40 @@ def clip_quant_mask_ref(rows: torch.Tensor, masks: torch.Tensor, clip: float, bi
     rows = rows.to(torch.float32)
     scaled = rows * clip_scale(row_norms(rows, dim), clip)
     return ring_add(encode(scaled, clip, bits), masks)
+
+
+def attention_mask(T: int, S: int, *, causal: bool, window: Optional[int], q_offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(T, S) bool: query t, at absolute position q_offset + t, sees key s
+    when s <= q_offset + t (causal) and s > q_offset + t - window."""
+    t = q_offset + torch.arange(T, device=device)[:, None]
+    s = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= s <= t
+    if window is not None:
+        mask &= s > t - window
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        logit_cap: float = 0.0) -> torch.Tensor:
+    """q (B, T, H, hd), k and v (B, S, K, hd), H % K == 0 -> (B, T, H, hd) in
+    q's dtype; float32 scores and softmax, query head h reads KV head h // (H // K).
+
+    The contract of the reference's ``flash_attention_ref``, except that a
+    query row with no valid key gives zeros (as the Pallas kernel does)
+    where that oracle gives the mean of v.
+    """
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, T, K, H // K, hd).float()
+    s = torch.einsum("btkgh,bskh->bkgts", qg, k.float()) * hd ** -0.5
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    mask = attention_mask(T, S, causal=causal, window=window, device=q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * mask.any(-1, keepdim=True)
+    o = torch.einsum("bkgts,bskh->btkgh", p, v.float())
+    return o.reshape(B, T, H, hd).to(q.dtype)
