@@ -449,23 +449,31 @@ def _bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
 
 
-def _flash_check(torch, ops, ref, case, dtype, gen) -> float:
-    """The kernel against its plain version on one case; returns max abs err."""
-    B, T, S, H, K, hd, causal, window, cap = case
-    q = torch.randn((B, T, H, hd), device=gen.device, generator=gen).to(dtype)
-    k = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
-    v = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
-    got = ops.flash_attention(q, k, v, causal=causal, window=window, logit_cap=cap)
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
+def _flash_hold(torch, ops, ref, q, k, v, label, **kw) -> float:
+    """The kernel against its plain version on q, k, v; returns max abs err.
+    float32 within ``FLASH_F32_ATOL``, bf16 within 1 bf16 ulp of the plain
+    result (``FLASH_BF16_FLOOR`` at least)."""
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         limit = torch.full_like(diff, FLASH_F32_ATOL)
     else:
         limit = torch.clamp_min(_bf16_ulp(torch, want), FLASH_BF16_FLOOR)
     bad = int((diff > limit).sum())
-    assert bad == 0, f"flash_attention {case} {dtype}: {bad} values off, max {diff.max().item()}"
+    assert bad == 0, f"flash_attention {label} {q.dtype}: {bad} values off, max {diff.max().item()}"
     return diff.max().item()
+
+
+def _flash_check(torch, ops, ref, case, dtype, gen) -> float:
+    """``_flash_hold`` on one case of seeded normal inputs."""
+    B, T, S, H, K, hd, causal, window, cap = case
+    q = torch.randn((B, T, H, hd), device=gen.device, generator=gen).to(dtype)
+    k = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
+    v = torch.randn((B, S, K, hd), device=gen.device, generator=gen).to(dtype)
+    return _flash_hold(torch, ops, ref, q, k, v, case, causal=causal, window=window,
+                       logit_cap=cap)
 
 
 def _causal_flops(B, T, H, hd) -> float:
@@ -485,6 +493,12 @@ def flash_kernel_phase(torch, ops, ref) -> dict:
         print(f"[kernels] flash_attention {str(dtype)[6:]} on the 8 reference cases: "
               f"max_abs_err {max(errs):.3e} ({limit}); per case "
               + " ".join(f"{e:.2e}" for e in errs))
+    # the [llm] prefill's shape: 4 prompts of 2048 positions (real inputs in llm_phase)
+    case = (PREFILL_B, PREFILL_T, PREFILL_T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True, None, 0.0)
+    err = _flash_check(torch, ops, ref, case, torch.bfloat16, gen)
+    print(f"[kernels] flash_attention {case[:6]} bf16 causal, the prefill's shape: "
+          f"max_abs_err {err:.3e} (<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR})")
+    torch.cuda.empty_cache()
     result = {}
     for T in (4096, 32768):
         shape = (1, T, T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True, None, 0.0)
@@ -537,7 +551,32 @@ def _logit_agreement(a, b) -> tuple[float, float, float]:
     return err, err / b.abs().max().item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
-def llm_phase(torch, ops) -> dict:
+def _hold_layer_inputs(torch, ops, ref, prefill) -> int:
+    """Run ``prefill`` with every ``flash_attention`` call's q, k and v kept,
+    then hold the kernel against its plain version on each layer's inputs;
+    returns the number of calls."""
+    kernel, calls = ops.flash_attention, []
+
+    def keep(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return kernel(q, k, v, **kw)
+
+    ops.flash_attention = keep  # attention_forward reads it from the module
+    try:
+        prefill()
+    finally:
+        ops.flash_attention = kernel
+    errs = [_flash_hold(torch, ops, ref, q, k, v, f"layer {i}", **kw)
+            for i, (q, k, v, kw) in enumerate(calls)]
+    q, k, _, kw = calls[0]
+    print(f"[llm] flash_attention on the prefill's own inputs, {len(calls)} layers of q "
+          f"{tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} {kw}: max_abs_err {max(errs):.3e} "
+          f"(<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR}); per layer max "
+          + " ".join(f"{e:.1e}" for e in errs))
+    return len(calls)
+
+
+def llm_phase(torch, ops, ref) -> dict:
     """qwen2-0.5b prefill and decode on the card; returns kernel -> launches
     of its flash prefill."""
     from repro_torch.configs import base
@@ -562,7 +601,9 @@ def llm_phase(torch, ops) -> dict:
         torch.cuda.synchronize()
         return logits, time.perf_counter() - t0
 
-    prefill(True)  # first use: cuBLAS handles and workspaces
+    # first use (cuBLAS handles and workspaces), each layer's attention checked
+    assert _hold_layer_inputs(torch, ops, ref, lambda: prefill(True)) == cfg.n_layers
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     flash, t_flash = prefill(True)
@@ -670,7 +711,7 @@ def main() -> int:
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")
     profile_phase(torch, "gossip_ring")
-    launches["flash_attention"] = llm_phase(torch, ops)["flash_attention"]
+    launches["flash_attention"] = llm_phase(torch, ops, ref)["flash_attention"]
 
     sources = {"staleness_agg": ("src/repro_torch/kernels/csrc/staleness_agg.cu",
                                  "src/repro/kernels/staleness_agg.py:37"),

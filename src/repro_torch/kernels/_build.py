@@ -35,7 +35,7 @@ _SIGNATURES = {
     ("clip_quant_mask", "rt_clip_quant_mask_tiles"): (_ll, (_ll,)),
     ("gossip_mix", "rt_gossip_mix"): (_i, (_p, _p, _p, _i, _ll, _i, _p)),
     ("flash_attention", "rt_flash_attention"):
-        (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _i, _p)),
+        (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _p)),
 }
 KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix", "flash_attention")
 

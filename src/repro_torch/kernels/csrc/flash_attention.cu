@@ -6,7 +6,8 @@
 //   over the keys with s < S, s <= t (causal) and s > t - window
 //
 // q: (B, T, H, hd), k and v: (B, S, K, hd), G = H / K, float32 or bfloat16,
-// read through their strides (the last one must be 1); out: (B, T, H, hd)
+// read through their strides (the last one 1, the others and the base
+// pointers 16-byte aligned); out: (B, T, H, hd)
 // contiguous, in q's dtype.  hd is one of 32, 48, 64, 80, 128, 256.
 //
 // Replaces the Pallas TPU kernel flash_attention_bh / _attn_kernel in
@@ -54,12 +55,10 @@ struct Params {
   void* out;
   int B, T, S, H, K;
   long long qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2;
-  int causal, window, vec;  // window <= 0: none
+  int causal, window;  // window <= 0: none
   float scale, cap;         // cap <= 0: none
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16(x); }
 
@@ -80,32 +79,26 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src, float* v) {
 
 // Rows row0..row0+63 of one head of a (B, L, heads, hd) tensor into a
 // float32 shared tile with row stride HD + kPad; rows at or past L are zeros.
-// src points at [b, 0, head, 0]; row r lies at src + r * s_row.
+// src points at [b, 0, head, 0]; row r lies at src + r * s_row.  src and
+// s_row are 16-byte aligned (the wrapper checks), so rows load 16 bytes at a time.
 template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long s_row, int row0, int L, int vec) {
+                                          long long s_row, int row0, int L) {
   constexpr int LD = HD + kPad;
-  if (vec) {
-    constexpr int E = 16 / sizeof(T);
-    constexpr int PER_ROW = HD / E;
-    for (int i = threadIdx.x; i < kBK * PER_ROW; i += kFAThreads) {
-      const int r = i / PER_ROW, c = (i % PER_ROW) * E;
-      float x[E];
-      if (row0 + r < L) {
-        load16(src + (row0 + r) * s_row + c, x);
-      } else {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int PER_ROW = HD / E;
+  for (int i = threadIdx.x; i < kBK * PER_ROW; i += kFAThreads) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * E;
+    float x[E];
+    if (row0 + r < L) {
+      load16(src + (row0 + r) * s_row + c, x);
+    } else {
 #pragma unroll
-        for (int e = 0; e < E; ++e) x[e] = 0.f;
-      }
-      float4* d = reinterpret_cast<float4*>(dst + r * LD + c);
+      for (int e = 0; e < E; ++e) x[e] = 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * LD + c);
 #pragma unroll
-      for (int e = 0; e < E; e += 4) d[e / 4] = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kBK * HD; i += kFAThreads) {
-      const int r = i / HD, c = i % HD;
-      dst[r * LD + c] = row0 + r < L ? to_f32(src[(row0 + r) * s_row + c]) : 0.f;
-    }
+    for (int e = 0; e < E; e += 4) d[e / 4] = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
   }
 }
 
@@ -127,7 +120,7 @@ flash_attention_kernel(const Params p) {
   const T* qh = static_cast<const T*>(p.q) + b * p.qs0 + h * p.qs2;
   const T* kh = static_cast<const T*>(p.k) + b * p.ks0 + kvh * p.ks2;
   const T* vh = static_cast<const T*>(p.v) + b * p.vs0 + kvh * p.vs2;
-  load_tile<T, HD>(Qs, qh, p.qs1, q0, p.T, p.vec);
+  load_tile<T, HD>(Qs, qh, p.qs1, q0, p.T);
 
   // keys the mask can leave to rows q0..q0+63: s <= t under causal, s > t - window
   int kv_end = p.S;
@@ -146,8 +139,8 @@ flash_attention_kernel(const Params p) {
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // the last tile's readers are done with Ks, Vs and Ps
-    load_tile<T, HD>(Ks, kh, p.ks1, k0, p.S, p.vec);
-    load_tile<T, HD>(Vs, vh, p.vs1, k0, p.S, p.vec);
+    load_tile<T, HD>(Ks, kh, p.ks1, k0, p.S);
+    load_tile<T, HD>(Vs, vh, p.vs1, k0, p.S);
     __syncthreads();
 
     // scores of rows 4*ty+i against keys k0 + tx + 16*j
@@ -278,19 +271,19 @@ cudaError_t dispatch(const Params& p, int hd, cudaStream_t s) {
 
 }  // namespace
 
-// Strides are in elements.  vec: every base pointer 16-byte aligned and
-// every stride a multiple of 16 bytes, so rows load 16 bytes at a time.
+// Strides are in elements.  Every base pointer must be 16-byte aligned and
+// every stride a multiple of 16 bytes: rows load 16 bytes at a time.
 RT_EXPORT int rt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                  int B, int T, int S, int H, int K, int hd,
                                  long long qs0, long long qs1, long long qs2,
                                  long long ks0, long long ks1, long long ks2,
                                  long long vs0, long long vs1, long long vs2,
                                  int causal, int window, float scale, float cap, int bf16,
-                                 int vec, void* stream) {
+                                 void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || S < 0 || H <= 0 || H > 65535 || K <= 0 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, out, B, T, S, H, K, qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2,
-                 causal, window, vec, scale, cap};
+                 causal, window, scale, cap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = bf16 ? dispatch<__nv_bfloat16>(p, hd, s) : dispatch<float>(p, hd, s);
   return static_cast<int>(e);

@@ -174,8 +174,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Query t sees key s when s <= t (``causal``) and s > t - ``window``; scores
     are ``logit_cap * tanh(s / logit_cap)`` when ``logit_cap > 0``; a row with
     no valid key gives zeros.  The inputs are read through their strides
-    (the last dimension must be contiguous), so the (B, T, H, hd) layout
-    needs no transposing copy.
+    (the last dimension contiguous, base and other strides 16-byte aligned,
+    on every device), so the (B, T, H, hd) layout needs no transposing copy.
     """
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q and k must be (B, T, H, hd) and (B, S, K, hd), got "
@@ -196,21 +196,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if t.dtype != q.dtype or t.device != q.device or tuple(t.shape) != (B, S, K, hd):
             raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
                              f"{q.dtype} {(B, S, K, hd)} on {q.device}")
+    step = 16 // q.element_size()  # elements per 16-byte load of the kernel
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
+        if t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
+            raise ValueError(f"{name}: base and strides {t.stride()} must be 16-byte aligned")
     if not _route(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=logit_cap)
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    step = 16 // q.element_size()  # elements per 16-byte load
-    vec = int(all(t.data_ptr() % 16 == 0 and all(s % step == 0 for s in t.stride()[:3])
-                  for t in (q, k, v)))
     err = _build.lib("flash_attention").rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H, K, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), window or 0,
-        hd ** -0.5, float(logit_cap), int(q.dtype == torch.bfloat16), vec, _stream())
+        hd ** -0.5, float(logit_cap), int(q.dtype == torch.bfloat16), _stream())
     _raise_on(err, "flash_attention")
     launches["flash_attention"] += 1
     return out

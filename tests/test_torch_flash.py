@@ -121,6 +121,10 @@ def _t(*shape, dtype=torch.float32):
     lambda: ops.flash_attention(_t(1, 8, 2, 32), _t(1, 8, 32, 2).transpose(2, 3),
                                 _t(1, 8, 2, 32)),
     lambda: ops.flash_attention(_t(1, 8, 2, 32), _t(1, 8, 2, 32), _t(1, 8, 2, 32), window=0),
+    lambda: ops.flash_attention(_t(1, 8, 2, 36)[..., 1:33], _t(1, 8, 2, 32),
+                                _t(1, 8, 2, 32)),  # base 4 bytes past 16-byte alignment
+    lambda: ops.flash_attention(_t(1, 8, 2, 32), _t(1, 8, 2, 32),
+                                _t(1, 8, 2, 33)[..., :32]),  # head stride of 33 elements
     lambda: ops.flash_attention(_t(8, 2, 32), _t(8, 2, 32), _t(8, 2, 32)),
     lambda: ops.flash_attention(_t(1, 8, 2, 32).to("meta"), _t(1, 8, 2, 32).to("meta"),
                                 _t(1, 8, 2, 32).to("meta")),
