@@ -5,7 +5,10 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build     compile the hand-written kernels (``csrc/*.cu``, one nvcc each)
+  1. build     compile the hand-written kernels (``csrc/*.cu``, one nvcc each);
+               print each kernel's registers and spills, the flash
+               designs' shared memory, and the HGMMA (wgmma) and UTMALDG
+               (TMA) instructions in the flash library's SASS
   2. card      print the card's name and power limit (nvidia-smi)
   3. kernels   hold each kernel against its plain version on the card at the
                main path's shape (k=10, P=4,698,112) and at a ragged shape,
@@ -13,9 +16,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                PyTorch library call with CUDA events; ``flash_attention`` at
                qwen2-0.5b's layer shape (1, 4096, 14 / 2 heads, 64) in bf16
                and at the eight cases of the reference's kernel tests in
-               float32 and bf16, timed against its plain version and
+               float32 and bf16, then bf16 cases of its tensor-core (wgmma)
+               design at hd 64, 128 and 256 (ragged, windowed, capped,
+               bidirectional MQA, more keys than queries, rows with no
+               key), timed against its plain version and
                ``scaled_dot_product_attention`` at 4096 and (kernel and
-               library only) 32768 positions
+               library only) 32768 positions, and at qwen3-0.6b's
+               (1, 4096, 16 / 8, 128) and gemma's (1, 4096, 16 / 16, 256)
+               layer shapes
   4. agree     small federations (ResNet widths (8, 16)) on the card and on
                the CPU from the same draws: same cohorts, close losses; for
                gossip, close node rows
@@ -33,7 +41,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
   7. llm       qwen2-0.5b at full width and depth (494,032,768 parameters,
                bf16, random weights from a seed): a flash prefill of 4 x 2048
                tokens (``forward(..., use_flash=True)``, counters zeroed
-               around it: 24 ``flash_attention`` launches) held against the
+               around it: 24 ``flash_attention`` launches, all on the wgmma
+               design) held against the
                plain-attention prefill (``make_prefill_step``); then serving
                as ``examples/serve_decode.py`` does: a 64-token prompt fed
                through ``make_decode_step``, 16 greedy tokens, the prompt's
@@ -481,55 +490,143 @@ def _causal_flops(B, T, H, hd) -> float:
     return 4.0 * B * H * hd * T * (T + 1) / 2
 
 
+# bf16 cases of the tensor-core (wgmma) design beyond the reference's eight:
+# (B, T, S, H, K, hd, causal, window, cap)
+WGMMA_CASES = [
+    (1, 200, 200, 16, 8, 128, True, None, 0.0),    # causal GQA, ragged T = S
+    (2, 256, 256, 4, 2, 128, True, 64, 0.0),       # window 64
+    (2, 128, 128, 4, 2, 128, True, None, 30.0),    # cap 30
+    (1, 128, 128, 4, 1, 128, False, None, 0.0),    # bidirectional MQA
+    (1, 64, 200, 4, 2, 128, False, None, 0.0),     # more keys than queries
+    (1, 64, 16, 4, 2, 128, True, 8, 0.0),          # T > S with a window: rows with no key
+    (1, 100, 100, 4, 4, 64, True, None, 0.0),      # ragged hd 64
+    (1, 200, 200, 16, 16, 256, True, None, 0.0),   # hd 256, ragged
+    (2, 256, 256, 4, 2, 256, True, 64, 30.0),      # hd 256, window and cap
+]
+# (label, B, T, H, K, hd): shapes timed against SDPA; the first is the main one
+FLASH_TIMED = [("", 1, 4096, QWEN2_HEADS, QWEN2_KV, QWEN2_HD),
+               ("_32k", 1, 32768, QWEN2_HEADS, QWEN2_KV, QWEN2_HD),
+               ("_hd128", 1, 4096, 16, 8, 128),    # qwen3-0.6b's layer
+               ("_hd256", 1, 4096, 16, 16, 256)]   # gemma's layer
+
+
+def _flash_wgmma_case(torch, ops, ref, case, gen) -> float:
+    """One bf16 case through the wgmma design; rows with no key give zeros."""
+    B, T, S, H, K, hd, causal, window, cap = case
+    assert ops.flash_design(torch.bfloat16, hd) == "wgmma", case
+    ops.reset_launches()
+    err = _flash_check(torch, ops, ref, case, torch.bfloat16, gen)
+    assert ops.flash_designs == {"wgmma": 1, "cuda_core": 0}, (case, ops.flash_designs)
+    if window is not None and T > S:
+        empty = torch.arange(T, device="cuda") >= S + window - 1
+        q = torch.randn((B, T, H, hd), device="cuda", generator=gen).bfloat16()
+        kv = torch.randn((2, B, S, K, hd), device="cuda", generator=gen).bfloat16()
+        got = ops.flash_attention(q, kv[0], kv[1], causal=causal, window=window, logit_cap=cap)
+        assert bool((got[:, empty] == 0).all()) and bool(empty.any()), case
+    return err
+
+
+def _over_one_ulp(torch, got, want) -> tuple[int, float]:
+    """Values of ``got`` more than 1 bf16 ulp of ``want`` (floor
+    ``FLASH_BF16_FLOOR``) from it, and the largest distance in those ulps."""
+    ratio = (got.float() - want.float()).abs() / torch.clamp_min(_bf16_ulp(torch, want),
+                                                                 FLASH_BF16_FLOOR)
+    return int((ratio > 1).sum()), ratio.max().item()
+
+
+def _flash_large_scores(torch, ops, ref, gen) -> None:
+    """Not a gate: the wgmma design where scores are large.  Its Q K^T sums
+    run in the tensor cores, whose float32 sums truncate, so with q and k
+    three times the unit normal (scaled scores up to about 40) a few outputs
+    move by more than 1 bf16 ulp.  The CUDA-core design sums with rounded
+    FMAs; its float32 route on the same values does its bf16 arithmetic."""
+    B, T, H, K, hd = PREFILL_B, PREFILL_T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD
+    q = (torch.randn((B, T, H, hd), device="cuda", generator=gen) * 3).bfloat16()
+    k = (torch.randn((B, T, K, hd), device="cuda", generator=gen) * 3).bfloat16()
+    v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    wgmma = ops.flash_attention(q, k, v, causal=True)
+    core = ops.flash_attention(q.float(), k.float(), v.float(), causal=True).bfloat16()
+    (n_w, r_w), (n_c, r_c) = _over_one_ulp(torch, wgmma, want), _over_one_ulp(torch, core, want)
+    print(f"[kernels] flash_attention {(B, T, H, K, hd)} bf16 causal, q and k x3 (not a gate): "
+          f"wgmma design {n_w} of {want.numel()} values over 1 bf16 ulp of the plain result "
+          f"(max {r_w:.2f} ulp); cuda_core design {n_c} (max {r_c:.2f} ulp)")
+
+
 def flash_kernel_phase(torch, ops, ref) -> dict:
     """``flash_attention`` against its plain version, and its times."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     for dtype in (torch.float32, torch.bfloat16):
+        ops.reset_launches()
         errs = [_flash_check(torch, ops, ref, case, dtype, gen) for case in FLASH_CASES]
+        want = {"wgmma": 0, "cuda_core": 0}
+        for case in FLASH_CASES:
+            want[ops.flash_design(dtype, case[5])] += 1
+        assert ops.flash_designs == want, (dtype, ops.flash_designs, want)
         limit = (f"<= {FLASH_F32_ATOL}" if dtype == torch.float32 else
                  f"<= 1 bf16 ulp of the plain result (floor {FLASH_BF16_FLOOR})")
         print(f"[kernels] flash_attention {str(dtype)[6:]} on the 8 reference cases: "
-              f"max_abs_err {max(errs):.3e} ({limit}); per case "
+              f"max_abs_err {max(errs):.3e} ({limit}); designs {want}; per case "
               + " ".join(f"{e:.2e}" for e in errs))
+    errs = [_flash_wgmma_case(torch, ops, ref, case, gen) for case in WGMMA_CASES]
+    print(f"[kernels] flash_attention bf16 on {len(WGMMA_CASES)} cases of the wgmma design "
+          f"(hd 128: ragged GQA, window, cap, MQA, S > T, T > S with empty rows as zeros; "
+          f"hd 64 ragged; hd 256): max_abs_err {max(errs):.3e} (<= 1 bf16 ulp of the plain "
+          f"result, floor {FLASH_BF16_FLOOR}); per case " + " ".join(f"{e:.2e}" for e in errs))
+    # the tensor maps read strided views: q, k, v of one fused projection, and
+    # transposes of (B, heads, T, hd) tensors
+    B, T, H, K, hd = 2, 300, 4, 2, 64
+    qkv = torch.randn((B, T, H + 2 * K, hd), device="cuda", generator=gen).bfloat16()
+    views = {"fused": (qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]),
+             "transposed": tuple(torch.randn((B, n, T, hd), device="cuda", generator=gen)
+                                 .bfloat16().transpose(1, 2) for n in (H, K, K))}
+    for name, (q, k, v) in views.items():
+        err = _flash_hold(torch, ops, ref, q, k, v, f"{name} views", causal=True)
+        print(f"[kernels] flash_attention bf16 on {name} views (strides q {q.stride()}, "
+              f"k {k.stride()}): max_abs_err {err:.3e} (<= 1 bf16 ulp of the plain result)")
     # the [llm] prefill's shape: 4 prompts of 2048 positions (real inputs in llm_phase)
     case = (PREFILL_B, PREFILL_T, PREFILL_T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True, None, 0.0)
     err = _flash_check(torch, ops, ref, case, torch.bfloat16, gen)
     print(f"[kernels] flash_attention {case[:6]} bf16 causal, the prefill's shape: "
           f"max_abs_err {err:.3e} (<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR})")
+    _flash_large_scores(torch, ops, ref, gen)
     torch.cuda.empty_cache()
     result = {}
-    for T in (4096, 32768):
-        shape = (1, T, T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True, None, 0.0)
-        q = torch.randn((1, T, QWEN2_HEADS, QWEN2_HD), device="cuda", generator=gen).bfloat16()
-        k = torch.randn((1, T, QWEN2_KV, QWEN2_HD), device="cuda", generator=gen).bfloat16()
-        v = torch.randn((1, T, QWEN2_KV, QWEN2_HD), device="cuda", generator=gen).bfloat16()
+    for label, B, T, H, K, hd in FLASH_TIMED:
+        shape = (B, T, T, H, K, hd, True, None, 0.0)
+        q = torch.randn((B, T, H, hd), device="cuda", generator=gen).bfloat16()
+        k = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
+        v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def lib():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, out written
-        bound, kind = _bound(nbytes, _causal_flops(1, T, QWEN2_HEADS, QWEN2_HD), BF16_OPS_PER_S)
-        reps = 20 if T == 4096 else 3
+        bound, kind = _bound(nbytes, _causal_flops(B, T, H, hd), BF16_OPS_PER_S)
+        reps = 20 if T <= 4096 else 5
         ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=reps, warmup=1)
         lib_ms = _time_ms(lib, reps=20)
         vs_lib = (ops.flash_attention(q, k, v, causal=True) - lib().transpose(1, 2)).float()
-        line = (f"[kernels] flash_attention (1, {T}, {QWEN2_HEADS}/{QWEN2_KV}, {QWEN2_HD}) bf16 "
-                f"causal: kernel_ms={ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={bound:.4f} ({kind}) "
+        line = (f"[kernels] flash_attention ({B}, {T}, {H}/{K}, {hd}) bf16 causal, "
+                f"{ops.flash_design(q.dtype, hd)} design: kernel_ms={ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({kind}) "
                 f"max_abs_diff_vs_sdpa={vs_lib.abs().max().item():.3e}")
-        if T == 4096:
+        result.update({f"ms{label}": ms, f"library_ms{label}": lib_ms,
+                       f"bound_ms{label}": bound})
+        if T <= 4096:
             err = _flash_check(torch, ops, ref, shape, torch.bfloat16, gen)
             plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), reps=10)
             print(f"{line} plain_ms={plain_ms:.4f}; max_abs_err vs plain {err:.3e} "
                   f"(<= 1 bf16 ulp, floor {FLASH_BF16_FLOOR})")
-            result.update(max_abs_err=err, parity="1 bf16 ulp (f32: 2e-5)", ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=kind)
+            result[f"plain_ms{label}"] = plain_ms
+            if not label:
+                result.update(max_abs_err=err, parity="1 bf16 ulp (f32: 2e-5)", bound_by=kind)
         else:
             print(f"{line} (plain version not run: its scores would take "
-                  f"{4 * QWEN2_HEADS * T * T / 2**30:.0f} GiB)")
-            result.update(ms_32k=ms, library_ms_32k=lib_ms, bound_ms_32k=bound)
+                  f"{4 * H * T * T / 2**30:.0f} GiB)")
         del q, k, v, qt, kt, vt, vs_lib
         torch.cuda.empty_cache()
     return result
@@ -607,9 +704,11 @@ def llm_phase(torch, ops, ref) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     flash, t_flash = prefill(True)
-    counts = dict(ops.launches)
+    counts, designs = dict(ops.launches), dict(ops.flash_designs)
     peak = torch.cuda.max_memory_allocated()
     assert counts["flash_attention"] == cfg.n_layers, counts
+    # every layer's attention on the tensor-core design
+    assert designs == {"wgmma": cfg.n_layers, "cuda_core": 0}, designs
     assert all(v == 0 for k, v in counts.items() if k != "flash_attention"), counts
     assert flash.shape == (PREFILL_B, PREFILL_T, cfg.vocab) and bool(torch.isfinite(flash).all())
     torch.cuda.synchronize()
@@ -622,7 +721,7 @@ def llm_phase(torch, ops, ref) -> dict:
     print(f"[llm] {LLM_ARCH}: {n:,} parameters, bf16, {cfg.n_layers} layers; prefill "
           f"{PREFILL_B} x {PREFILL_T}: flash {t_flash * 1e3:.2f} ms "
           f"({n_tok / t_flash:.0f} tokens/s), plain attention {t_plain * 1e3:.2f} ms ({n_tok / t_plain:.0f} tokens/s); "
-          f"launches {counts}; peak_mem_gib={peak / 2**30:.3f}")
+          f"launches {counts}; flash designs {designs}; peak_mem_gib={peak / 2**30:.3f}")
     print(f"[llm] flash vs plain prefill logits: max_abs_diff={err:.4e} rel={rel:.4e} "
           f"(limit {LOGIT_REL_TOL}) argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN}); "
           f"max |logit| {plain.abs().max().item():.4f}")
@@ -680,7 +779,76 @@ def llm_phase(torch, ops, ref) -> dict:
               f"{e.key[:90]}")
     print(f"[llm] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since the prefill's reset")
-    return counts
+    return counts, designs
+
+
+def _ptxas_report(log: str) -> list[tuple[str, str]]:
+    """(kernel, 'N registers, S bytes spill stores, L bytes spill loads') per
+    entry function of an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spills = line.strip().split(", ", 1)[1]
+        elif name and (used := re.search(r"Used (\d+) registers", line)):
+            out.append((name, f"{used.group(1)} registers, {spills}"))
+            name = None
+    return out
+
+
+def _flash_label(name: str) -> str:
+    """A flash kernel's design, dtype and head dim from its mangled name."""
+    import re
+
+    wg = re.search(r"flash_wgmma_kernelILi(\d+)E", name)
+    if wg:
+        return f"wgmma bf16 hd={wg.group(1)}"
+    core = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+    return f"cuda_core {'f32' if core.group(1) == 'f' else 'bf16'} hd={core.group(2)}"
+
+
+def build_report(_build, ops) -> None:
+    """[build] lines: registers and spills of every kernel, the flash designs'
+    shared memory, and the tensor-core (HGMMA) and TMA (UTMALDG)
+    instructions in the flash library's SASS."""
+    for name in _build.KERNELS:
+        if name not in _build.build_log:
+            print(f"[build] {name}: reused from {_build.BUILD_DIR} (no ptxas report)")
+    for name, log in _build.build_log.items():
+        for fn, use in _ptxas_report(log):
+            label = _flash_label(fn) if name == "flash_attention" else fn
+            print(f"[build] {name} {label}: {use}")
+        for line in log.splitlines():
+            if name == "flash_attention" and "(C75" in line:
+                print(f"[build] flash_attention ptxas: {line.split(':', 1)[1].strip()[:160]}")
+    lib = _build.lib("flash_attention")
+    print("[build] flash_attention wgmma shared memory per block: " + ", ".join(
+        f"hd={hd} {lib.rt_flash_wgmma_smem(hd)} bytes" for hd in ops.WGMMA_HEAD_DIMS))
+    so = str(_build._target("flash_attention"))
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "--dump-sass", so], capture_output=True, text=True,
+                              check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split()[0]
+            if "flash_wgmma_kernel" in fn:
+                hgmma, utmaldg = part.count("HGMMA"), part.count("UTMALDG")
+                print(f"[build] flash_attention SASS {_flash_label(fn)}: {hgmma} HGMMA (wgmma), "
+                      f"{utmaldg} UTMALDG (TMA load) instructions")
+                assert hgmma > 0 and utmaldg > 0, fn
+    else:  # count in the PTX of the same source instead
+        ptx_path = os.path.join(os.path.dirname(so), "flash_attention.ptx")
+        subprocess.run([_build._nvcc(), "-ptx", "-arch=sm_90a", "-std=c++17", "-O3", "-I",
+                        str(_build._CSRC), "-o", ptx_path,
+                        str(_build._CSRC / "flash_attention.cu")], check=True)
+        ptx = open(ptx_path).read()
+        wgmma, tma = ptx.count("wgmma.mma_async"), ptx.count("cp.async.bulk.tensor")
+        print(f"[build] flash_attention: no cuobjdump beside nvcc; its PTX (nvcc -ptx) holds "
+              f"{wgmma} wgmma.mma_async and {tma} cp.async.bulk.tensor instructions")
+        assert wgmma > 0 and tma > 0
 
 
 def main() -> int:
@@ -696,10 +864,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
     secs = _build.build_all()
     print(f"[build] {len(_build.KERNELS)} kernel libraries in {secs:.2f} s")
-    for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    build_report(_build, ops)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -711,7 +876,9 @@ def main() -> int:
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")
     profile_phase(torch, "gossip_ring")
-    launches["flash_attention"] = llm_phase(torch, ops, ref)["flash_attention"]
+    counts, designs = llm_phase(torch, ops, ref)
+    launches["flash_attention"] = counts["flash_attention"]
+    results["flash_attention"]["designs"] = designs
 
     sources = {"staleness_agg": ("src/repro_torch/kernels/csrc/staleness_agg.cu",
                                  "src/repro/kernels/staleness_agg.py:37"),

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface, which is loaded with ``ctypes``.  All sources
 compile at once (one ``nvcc`` process each, started together) at first use,
 into ``build/repro_torch/`` at the root of the checkout; a library's file
-name carries a hash of its source, header and flags, so an edit rebuilds it
+name carries a hash of its source, every header it includes (``#include
+"..."``, followed through the headers) and its flags, so an edit rebuilds it
 and an unchanged source is reused.  Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,7 +37,8 @@ _SIGNATURES = {
     ("clip_quant_mask", "rt_clip_quant_mask_tiles"): (_ll, (_ll,)),
     ("gossip_mix", "rt_gossip_mix"): (_i, (_p, _p, _p, _i, _ll, _i, _p)),
     ("flash_attention", "rt_flash_attention"):
-        (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _p)),
+        (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _i, _p)),
+    ("flash_attention", "rt_flash_wgmma_smem"): (_i, (_i,)),
 }
 KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix", "flash_attention")
 
@@ -54,10 +57,27 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``{name}.cu`` and every header of ``csrc/`` it includes, directly or
+    through another header, in the order first reached."""
+    seen, todo = [], [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [_CSRC / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    h.update((_CSRC / f"{name}.cu").read_bytes())
-    h.update((_CSRC / "common.cuh").read_bytes())
+    for path in _sources(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(_FLAGS + _EXTRA.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -23,21 +23,31 @@
 //
 // Bound: operations.  Causal attention at qwen2-0.5b's layer shape does
 // about 0.44*T FLOPs per byte of q, k, v and out (1,792 at T = 4096), far
-// above the card's balance point of about 295.  This first version is simple and right, not fast: every product
-// runs in float32 on the CUDA cores (no tensor cores, no wgmma, no TMA).  A
-// block of 256 threads owns 64 query rows of one (b, h); Q, a 64-key tile of
-// K and of V, and the tile's probabilities sit in shared memory, and each
-// block walks the key tiles in order, skipping the tiles the causal mask or
-// the window removes entirely.  Thread (ty, tx) of a 16 x 16 grid owns rows
-// 4*ty..4*ty+3: key columns tx + 16*j of the score tile (4 x 4 registers) and
-// output columns tx + 16*n (4 x hd/16 registers).  The 16 threads of a row
-// group are 16 lanes of one warp, so row max and row sum are warp shuffles.
-// Rows of the shared tiles are padded by 4 floats so the float4 reads of
-// neighbouring rows fall in distinct banks.  The q tiles run in reverse
-// order, so that under a causal mask the longest blocks start first.
+// above the card's balance point of about 295.
+//
+// Two designs, chosen by (dtype, hd) before the launch (the wrapper's
+// ops.flash_design is the rule; a launch never falls back to the other):
+//  - wgmma (flash_wgmma.cuh): bf16 at hd 64, 128 and 256.  Tensor-core
+//    products, TMA loads into an mbarrier ring, a producer warpgroup and two
+//    consumer warpgroups; its header says how it keeps the plain version's
+//    float32 precision.
+//  - CUDA core (this file): float32 inputs, and bf16 at the other head dims.
+//    Every product runs in float32 on the CUDA cores.  A block of 256
+//    threads owns 64 query rows of one (b, h); Q, a 64-key tile of K and of
+//    V, and the tile's probabilities sit in shared memory, and each block
+//    walks the key tiles in order, skipping the tiles the causal mask or the
+//    window removes entirely.  Thread (ty, tx) of a 16 x 16 grid owns rows
+//    4*ty..4*ty+3: key columns tx + 16*j of the score tile (4 x 4 registers)
+//    and output columns tx + 16*n (4 x hd/16 registers).  The 16 threads of
+//    a row group are 16 lanes of one warp, so row max and row sum are warp
+//    shuffles.  Rows of the shared tiles are padded by 4 floats so the
+//    float4 reads of neighbouring rows fall in distinct banks.  The q tiles
+//    run in reverse order, so that under a causal mask the longest blocks
+//    start first.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -256,15 +266,24 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, int hd, cudaStream_t s) {
+// float32 at every head dim; bf16 only where the wgmma design does not run
+cudaError_t dispatch_f32(const Params& p, int hd, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(p, s);
-    case 48: return launch<T, 48>(p, s);
-    case 64: return launch<T, 64>(p, s);
-    case 80: return launch<T, 80>(p, s);
-    case 128: return launch<T, 128>(p, s);
-    case 256: return launch<T, 256>(p, s);
+    case 32: return launch<float, 32>(p, s);
+    case 48: return launch<float, 48>(p, s);
+    case 64: return launch<float, 64>(p, s);
+    case 80: return launch<float, 80>(p, s);
+    case 128: return launch<float, 128>(p, s);
+    case 256: return launch<float, 256>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t s) {
+  switch (hd) {
+    case 32: return launch<__nv_bfloat16, 32>(p, s);
+    case 48: return launch<__nv_bfloat16, 48>(p, s);
+    case 80: return launch<__nv_bfloat16, 80>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -272,19 +291,47 @@ cudaError_t dispatch(const Params& p, int hd, cudaStream_t s) {
 }  // namespace
 
 // Strides are in elements.  Every base pointer must be 16-byte aligned and
-// every stride a multiple of 16 bytes: rows load 16 bytes at a time.
+// every stride a multiple of 16 bytes: rows load 16 bytes at a time, and TMA
+// requires it.  wgmma != 0 launches the tensor-core design, which takes bf16
+// at hd 64, 128 and 256 only; the CUDA-core design takes float32 at every
+// head dim and bf16 at the others.  Returns 0, a cudaError_t, or minus the
+// CUresult of a failed tensor-map encode.
 RT_EXPORT int rt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                  int B, int T, int S, int H, int K, int hd,
                                  long long qs0, long long qs1, long long qs2,
                                  long long ks0, long long ks1, long long ks2,
                                  long long vs0, long long vs1, long long vs2,
                                  int causal, int window, float scale, float cap, int bf16,
-                                 void* stream) {
+                                 int wgmma, void* stream) {
   if (B <= 0 || B > 65535 || T <= 0 || S < 0 || H <= 0 || H > 65535 || K <= 0 || H % K)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    const long long qs[3] = {qs0, qs1, qs2}, ks[3] = {ks0, ks1, ks2}, vs[3] = {vs0, vs1, vs2};
+    switch (hd) {
+      case 64: return flash_wgmma::launch<64>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
+                                              window, scale, cap, s);
+      case 128: return flash_wgmma::launch<128>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
+                                                window, scale, cap, s);
+      case 256: return flash_wgmma::launch<256>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
+                                                window, scale, cap, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const Params p{q, k, v, out, B, T, S, H, K, qs0, qs1, qs2, ks0, ks1, ks2, vs0, vs1, vs2,
                  causal, window, scale, cap};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = bf16 ? dispatch<__nv_bfloat16>(p, hd, s) : dispatch<float>(p, hd, s);
+  const cudaError_t e = bf16 ? dispatch_bf16(p, hd, s) : dispatch_f32(p, hd, s);
   return static_cast<int>(e);
+}
+
+// Dynamic shared memory of the tensor-core design's block at head dim hd
+// (0 where it has no instantiation).
+RT_EXPORT int rt_flash_wgmma_smem(int hd) {
+  switch (hd) {
+    case 64: return flash_wgmma::Tile<64>::SMEM;
+    case 128: return flash_wgmma::Tile<128>::SMEM;
+    case 256: return flash_wgmma::Tile<256>::SMEM;
+    default: return 0;
+  }
 }

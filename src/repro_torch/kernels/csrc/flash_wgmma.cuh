@@ -1,0 +1,479 @@
+// The tensor-core design of flash_attention for Hopper: bf16 inputs, head
+// dims 64, 128 and 256.  Same function as the CUDA-core kernel in
+// flash_attention.cu (see its header for the contract); this file holds the
+// kernel and its host launch.
+//
+// A block owns 128 query rows of one (b, h) and has three warpgroups:
+//  - warpgroup 0, the producer, gives up registers (setmaxnreg.dec) and one
+//    of its threads issues TMA loads: the Q tile once, then each K and V
+//    tile of the block's key range into a ring of 4 stages, guarded by
+//    full (TMA landed) and empty (both consumers done) mbarriers;
+//  - warpgroups 1 and 2, the consumers, take the registers
+//    (setmaxnreg.inc) and own 64 query rows each.  Per key tile:
+//    S = Q K^T by wgmma (Q and K K-major in 128-byte-swizzled shared
+//    memory), the scale hd^-0.5, the cap and the mask applied in float32 on
+//    the accumulator layout, the online softmax in registers (row max and
+//    row sum over the 4 lanes that share a row), then the tile's P V by
+//    wgmma, 64 columns of hd at a time, with P from registers and V from
+//    shared memory read MN-major (the transpose bit: no transposing copy).
+//    The two consumers take turns on the tensor cores (named barriers), so
+//    one's softmax runs under the other's products.
+//
+// Precision.  The plain version computes P V in float32.  P rounded once
+// to bf16 errs by up to 2^-9 per weight, and P = P_hi + P_lo in two bf16
+// pieces by up to about 2^-17; where the sum of p * v cancels to a small
+// output, either is more than one bf16 ulp of that output.  So P is split
+// into three bf16 pieces, P_hi + P_mid + P_lo, each the top 16 bits of what
+// the earlier pieces leave: the differences are exact in float32 and the
+// pieces sum to P exactly.  A tile's P V is three RS wgmmas into one float32
+// accumulator, whose products are exact.  That triples the P V half of the
+// tensor work: the kernel issues twice the counted FLOPs.  The tensor
+// cores' float32 sums truncate, so the running output is not kept there:
+// each tile's P V starts a fresh accumulator, and the CUDA cores merge it,
+// o = fma(o, corr, o_tile), rounded to nearest.  (Kept in the tensor cores
+// across a 2048-key row, the truncation moved small outputs of qwen2-0.5b's
+// layers by up to 2.4 bf16 ulps.)  Q K^T still sums in the tensor cores:
+// where scores are large (scaled scores near 40) a few outputs move by more
+// than one ulp; chip_smoke.py reports how many.  The exponentials
+// are 2^(s * hd^-0.5 * log2(e) - m') on the special-function unit, with the
+// row max m' rounded once per tile and reused in the rescaling, so its
+// rounding cancels.  tests/test_torch_flash.py emulates this arithmetic on
+// the CPU.
+//
+// Masking follows the CUDA-core kernel: masked scores are -1e30, a tile
+// that leaves a row no key gives p = 0 and corr = 1, and the result is
+// acc / max(l, 1e-30), so a row with no key gives zeros.  Tiles the causal
+// mask or the window remove entirely are never loaded; a tile that needs no
+// mask skips the per-element test.  TMA zero-fills rows past T or S; the
+// mask still decides by position.
+//
+// Grid: one block per (q tile, b, h), longest causal q tiles first, and the
+// G query heads of one KV group in adjacent blocks, so the K and V tiles
+// they share are L2 hits.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
+
+namespace flash_wgmma {
+
+using namespace hopper;
+
+constexpr int kBM = 128;         // query rows per block: 64 per consumer warpgroup
+constexpr int kThreads = 384;    // producer warpgroup + 2 consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24*128 + 240*256 <= 65,536
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tile {
+  static_assert(HD % 64 == 0, "a row is whole 128-byte swizzle rows");
+  // keys per tile: the scores, P's pieces, O and one tile's P V share a
+  // consumer's 240 registers (BN/2 + 3*BN/8 + HD/2 + 32 of them), so a
+  // wider head takes fewer keys
+  static constexpr int BN = HD == 64 ? 128 : HD == 128 ? 64 : 32;
+  static constexpr int STAGES = 4;                 // K/V ring depth
+  static constexpr int NCB = HD / 64;              // 128-byte column blocks of a row
+  static constexpr int Q_CB = kBM * 128;           // bytes of one Q column block
+  static constexpr int KV_CB = BN * 128;           // bytes of one K or V column block
+  static constexpr int Q_BYTES = NCB * Q_CB;
+  static constexpr int KV_BYTES = NCB * KV_CB;     // one K (or V) tile
+  static constexpr int BARRIERS = 8 * (1 + 3 * STAGES);
+  // + 1024: the dynamic shared memory is aligned up to 1024 bytes in the kernel
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BARRIERS + 1024;
+  static_assert(SMEM <= 232448, "more than a block's 227 KB of shared memory");
+};
+
+struct Params {
+  void* out;
+  int B, T, S, H, K;
+  int causal, window;  // window <= 0: none
+  float scale, cap;    // cap <= 0: none
+  int n_qtiles;
+};
+
+// P's three bf16 pieces for two neighbouring values x0, x1 >= 0, packed as
+// the wgmma A operand packs them (the lower column in the low half).  Each
+// piece is the top 16 bits of what the earlier pieces leave; every
+// difference is exact in float32, and the three pieces hold a float32
+// exactly (8 + 8 + 8 significant bits).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  constexpr uint32_t kTop = 0xffff0000u;
+  uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);  // the high halves of u0 and u1
+  u0 = __float_as_uint(x0 - __uint_as_float(u0 & kTop));
+  u1 = __float_as_uint(x1 - __uint_as_float(u1 & kTop));
+  mid = __byte_perm(u0, u1, 0x7632);
+  u0 = __float_as_uint(__uint_as_float(u0) - __uint_as_float(u0 & kTop));
+  u1 = __float_as_uint(__uint_as_float(u1) - __uint_as_float(u1 & kTop));
+  lo = __byte_perm(u0, u1, 0x7632);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ int quad_or(int x) {
+  x |= __shfl_xor_sync(0xffffffffu, x, 1);
+  return x | __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Issues S = Q K^T for one warpgroup's 64 rows (not waited for): Q and K
+// K-major, 16 columns of a 64-column block per k step
+template <int HD, int BN>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_wg, uint32_t k_tile) {
+  using C = Tile<HD>;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<BN>(sc, desc_sw128(q_wg + (kk / 4) * C::Q_CB + off, 16, 1024),
+                 desc_sw128(k_tile + (kk / 4) * C::KV_CB + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O = corr * O + P V for one tile, 64 columns of hd at a time: each
+// column block's P V goes into ot in the tensor cores (P's three pieces
+// from registers, V read MN-major: 16 keys of 128-byte rows per slice),
+// then into o on the CUDA cores.  The last block's merge is left to the
+// caller, after this consumer's turn.
+template <int HD>
+__device__ __forceinline__ void merge_block(float (&o)[HD / 2], const float (&ot)[32],
+                                            const float (&corr)[2], int cb) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[32 * cb + i] = fmaf(o[32 * cb + i], corr[(i >> 1) & 1], ot[i]);
+}
+
+template <int HD, int BN>
+__device__ __forceinline__ void pv(float (&o)[HD / 2], float (&ot)[32],
+                                   uint32_t (&pa)[3][BN / 16][4], const float (&corr)[2],
+                                   uint32_t v_tile) {
+  using C = Tile<HD>;
+#pragma unroll
+  for (int cb = 0; cb < C::NCB; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_reg(ot[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      // N = 64 is one swizzle column: lbo unused
+      const uint64_t dv = desc_sw128(v_tile + cb * C::KV_CB + j * 2048, 0, 1024);
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+        wgmma_rs_m64n64k16(ot, pa[piece][j], dv, j + piece > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) fence_reg(ot[i]);
+    if (cb + 1 < C::NCB) merge_block<HD>(o, ot, corr, cb);
+  }
+#pragma unroll
+  for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) fence_reg(pa[piece][j][r]);
+}
+
+// One thread's two rows of a score tile: sc[i] is row (i & 2 ? t1 : t0),
+// key k0 + 8*(i/4) + c2 + (i & 1).  Applies cap and mask, updates the
+// running max m (in the units of sc) and sum l, and leaves P's pieces in pa
+// and each row's rescaling of the running output in corr.
+// p = 2^(y*c - fl(m*c)) with c = hd^-0.5 log2(e) on raw scores (log2(e)
+// after the cap); corr uses the same rounded fl(m*c), so its rounding
+// cancels between tiles.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], uint32_t (&pa)[3][BN / 16][4],
+                                             float (&m)[2], float (&l)[2], float (&corr)[2],
+                                             const Params& p, float c, int k0, int t_lo, int t0,
+                                             int t1, int c2) {
+  if (p.cap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = p.cap * tanhf(sc[i] * p.scale / p.cap);
+  }
+  const bool full = k0 + BN <= p.S && (!p.causal || k0 + BN - 1 <= t_lo) &&
+                    (p.window <= 0 || k0 > t_lo + 63 - p.window);
+  int any[2] = {1, 1};
+  if (!full) {
+    any[0] = any[1] = 0;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+      const int t = (i & 2) ? t1 : t0;
+      const bool ok = key < p.S && (!p.causal || key <= t) &&
+                      (p.window <= 0 || key > t - p.window);
+      sc[i] = ok ? sc[i] : kNegInf;
+      any[(i >> 1) & 1] |= ok;
+    }
+    any[0] = quad_or(any[0]);
+    any[1] = quad_or(any[1]);
+  }
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float mu[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    // a tile that leaves the row no key: p = 0 (2^-inf), corr = 1
+    mu[r] = any[r] ? __fmul_rn(m_new, c) : INFINITY;
+    corr[r] = any[r] ? ex2(__fmul_rn(m[r], c) - mu[r]) : 1.f;
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    sc[i] = ex2(fmaf(sc[i], c, -mu[(i >> 1) & 1]));
+    sum[(i >> 1) & 1] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = corr[r] * l[r] + quad_sum(sum[r]);
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1], pa[0][j][r], pa[1][j][r], pa[2][j][r]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using C = Tile<HD>;
+  constexpr int BN = C::BN, ST = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + C::Q_BYTES;
+  const uint32_t sv = sk + ST * C::KV_BYTES;
+  const uint32_t bars = sv + ST * C::KV_BYTES;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8, v_full = k_full + 8 * ST, kv_empty = v_full + 8 * ST;
+
+  // block -> (q tile, b, h): longest causal q tiles first; the G query heads
+  // of a KV group adjacent
+  const int G = p.H / p.K;
+  int bid = blockIdx.x;
+  const int g = bid % G;
+  bid /= G;
+  const int bk = bid % (p.B * p.K);
+  bid /= p.B * p.K;
+  const int q0 = (p.n_qtiles - 1 - bid) * kBM;
+  const int b = bk / p.K, kvh = bk % p.K, h = kvh * G + g;
+
+  // keys the mask can leave to rows q0..q0+127: s <= t under causal, s > t - window
+  int kv_end = p.S;
+  if (p.causal) kv_end = min(kv_end, q0 + kBM);
+  int kv_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  kv_begin -= kv_begin % BN;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 256);  // every consumer thread arrives
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // One if/else for the whole kernel: the two roles never reconverge, as
+  // setmaxnreg needs.
+  if (threadIdx.x < 128) {
+    // ---- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int c = 0; c < C::NCB; ++c)
+        tma_load_4d(sq + c * C::Q_CB, &tq, 64 * c, h, q0, b, q_full);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        // the first pass over the ring finds every stage empty
+        mbar_wait(kv_empty + 8 * s, ((it / ST) & 1) ^ 1);
+        const int k0 = kv_begin + it * BN;
+        mbar_expect_tx(k_full + 8 * s, C::KV_BYTES);
+        for (int c = 0; c < C::NCB; ++c)
+          tma_load_4d(sk + s * C::KV_BYTES + c * C::KV_CB, &tk, 64 * c, kvh, k0, b,
+                      k_full + 8 * s);
+        mbar_expect_tx(v_full + 8 * s, C::KV_BYTES);
+        for (int c = 0; c < C::NCB; ++c)
+          tma_load_4d(sv + s * C::KV_BYTES + c * C::KV_CB, &tv, 64 * c, kvh, k0, b,
+                      v_full + 8 * s);
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / 128 - 1;  // rows q0 + 64*cw .. + 63
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int c2 = 2 * (lane % 4);
+    const int t_lo = q0 + 64 * cw;
+    const int t0 = t_lo + warp * 16 + lane / 4, t1 = t0 + 8;  // this thread's two rows
+    const uint32_t q_wg = sq + cw * 64 * 128;
+    const float c = p.cap > 0.f ? kLog2e : p.scale * kLog2e;
+    // Ping-pong: a consumer issues its products only between a sync on its
+    // own named barrier and an arrive on the other's, so the two take turns
+    // on the tensor cores and one's softmax runs under the other's products.
+    // Consumer 0 goes first; consumer 1 skips its last arrive, so every
+    // arrive meets a sync.
+    const int bar_mine = 1 + cw, bar_other = 2 - cw;
+
+    // o: the running output, in float32 on the CUDA cores; ot: one tile's
+    // P V for 64 columns, in the tensor cores.  Their float32 sums truncate,
+    // so adding tile after tile there drifts with the row's length; o is
+    // rounded to nearest, once per tile.
+    float o[HD / 2], ot[32], sc[BN / 2];
+    uint32_t pa[3][BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+
+    // one tile: softmax of S (already issued), its P V merged into o, then,
+    // unless it is the last tile, S of the next tile; the issue is never
+    // conditional, so ptxas keeps the products asynchronous
+    auto step = [&](const int it, auto not_last) {
+      const int s = it % ST;
+      wgmma_wait<0>();  // S of tile it
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
+      softmax_tile<BN>(sc, pa, m, l, corr, p, c, kv_begin + it * BN, t_lo, t0, t1, c2);
+      // the softmax's results are complete before this consumer's turn:
+      // otherwise the compiler sinks the split of P into it
+#pragma unroll
+      for (int piece = 0; piece < 3; ++piece)
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fence_reg(pa[piece][j][r]);
+      mbar_wait(v_full + 8 * s, (it / ST) & 1);
+      named_bar_sync(bar_mine, 256);
+      pv<HD, BN>(o, ot, pa, corr, sv + s * C::KV_BYTES);
+      mbar_arrive(kv_empty + 8 * s);
+      if constexpr (decltype(not_last)::value) {
+        const int s1 = (it + 1) % ST;
+        mbar_wait(k_full + 8 * s1, ((it + 1) / ST) & 1);
+        issue_qk<HD, BN>(sc, q_wg, sk + s1 * C::KV_BYTES);
+        named_bar_arrive(bar_other, 256);
+      } else if (cw == 0) {
+        named_bar_arrive(bar_other, 256);
+      }
+      merge_block<HD>(o, ot, corr, C::NCB - 1);
+    };
+
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      if (cw == 1) named_bar_arrive(bar_other, 256);
+      named_bar_sync(bar_mine, 256);
+      mbar_wait(k_full, 0);
+      issue_qk<HD, BN>(sc, q_wg, sk);
+      named_bar_arrive(bar_other, 256);
+      for (int it = 0; it + 1 < n_tiles; ++it) step(it, std::true_type{});
+      step(n_tiles - 1, std::false_type{});
+    }
+
+    // out = acc / max(l, 1e-30), rows past T not written
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r ? t1 : t0;
+      if (t >= p.T) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* row = out + ((static_cast<long long>(b) * p.T + t) * p.H + h) * HD;
+#pragma unroll
+      for (int jn = 0; jn < HD / 8; ++jn)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * jn + c2) =
+            __floats2bfloat162_rn(o[4 * jn + 2 * r] / den, o[4 * jn + 2 * r + 1] / den);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver at first use (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// Rank-4 view (hd, heads, L, B) of a (B, L, heads, hd) bf16 tensor through its
+// element strides s0 (B), s1 (L), s2 (heads); boxes of 64 x 1 x rows x 1,
+// 128-byte swizzled.  Returns the driver's CUresult.
+inline CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int hd, int heads,
+                       int L, int B, long long s0, long long s1, long long s2, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s2) * 2, static_cast<cuuint64_t>(s1) * 2,
+                                 static_cast<cuuint64_t>(s0) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Returns 0, a cudaError_t, or minus the CUresult of a failed tensor-map encode.
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int T, int S, int H,
+           int K, const long long* qs, const long long* ks, const long long* vs, int causal,
+           int window, float scale, float cap, cudaStream_t stream) {
+  using C = Tile<HD>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  CUresult r = encode(fn, &tq, q, HD, H, T, B, qs[0], qs[1], qs[2], kBM);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  if (S > 0) {
+    r = encode(fn, &tk, k, HD, K, S, B, ks[0], ks[1], ks[2], C::BN);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+    r = encode(fn, &tv, v, HD, K, S, B, vs[0], vs[1], vs[2], C::BN);
+    if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  } else {  // no key: the kernel loads no K or V tile
+    tk = tq;
+    tv = tq;
+  }
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qtiles = (T + kBM - 1) / kBM;
+  const Params p{out, B, T, S, H, K, causal, window, scale, cap, n_qtiles};
+  const long long blocks = static_cast<long long>(n_qtiles) * B * H;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  flash_wgmma_kernel<HD>
+      <<<static_cast<unsigned>(blocks), kThreads, C::SMEM, stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace flash_wgmma

@@ -9,8 +9,9 @@ device raises.  There is no fallback: a CUDA tensor goes to the kernel or
 the call raises.
 
 ``launches`` counts, per kernel, the calls that launched it; it counts
-nothing on the CPU route.  ``chip_smoke.py`` zeroes it around the main path
-to show that the path went through the kernels.
+nothing on the CPU route.  ``flash_designs`` counts the ``flash_attention``
+launches by design (``flash_design``).  ``chip_smoke.py`` zeroes both
+around the main path to show that the path went through the kernels.
 
 The uint32 ring is carried in ``int32`` tensors holding the bit pattern.
 """
@@ -23,11 +24,13 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches: dict[str, int] = {name: 0 for name in _build.KERNELS}
+flash_designs: dict[str, int] = {"wgmma": 0, "cuda_core": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, flash_designs):
+        for name in counts:
+            counts[name] = 0
 
 
 def _route(t: torch.Tensor) -> bool:
@@ -60,6 +63,8 @@ def _stream() -> int:
 
 
 def _raise_on(err: int, name: str) -> None:
+    if err < 0:  # flash_attention's tensor-map encode
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
@@ -164,6 +169,17 @@ def gossip_mix(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
 
 # head dims instantiated in csrc/flash_attention.cu: those of every config (32 when reduced)
 FLASH_HEAD_DIMS = (32, 48, 64, 80, 128, 256)
+# head dims of the tensor-core design (csrc/flash_wgmma.cuh), bf16 only: whole
+# 128-byte rows of the TMA swizzle
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_design(dtype: torch.dtype, hd: int) -> str:
+    """The kernel design a ``flash_attention`` launch takes: ``"wgmma"``
+    (tensor cores, TMA) for bf16 at ``WGMMA_HEAD_DIMS``, else
+    ``"cuda_core"`` (float32 products).  Decided before the launch; a launch
+    never falls back to the other design."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "cuda_core"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -207,10 +223,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    design = flash_design(q.dtype, hd)
     err = _build.lib("flash_attention").rt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, S, H, K, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), window or 0,
-        hd ** -0.5, float(logit_cap), int(q.dtype == torch.bfloat16), _stream())
+        hd ** -0.5, float(logit_cap), int(q.dtype == torch.bfloat16), int(design == "wgmma"),
+        _stream())
     _raise_on(err, "flash_attention")
     launches["flash_attention"] += 1
+    flash_designs[design] += 1
     return out

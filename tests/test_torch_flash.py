@@ -6,8 +6,13 @@ the reference's Pallas kernel run through the interpreter (blocks of 64,
 as ``tests/test_kernels.py`` runs it) and with the reference's oracle, on
 the eight cases of ``tests/test_kernels.py``, a bfloat16 case and cases
 with more keys than queries.  The CUDA kernel itself runs only on the card
-(``chip_smoke.py`` holds it against the same plain version there).
+(``chip_smoke.py`` holds it against the same plain version there); here the
+tensor-core design's arithmetic is emulated in float32 and held to the gate
+the card holds the kernel to, and ``_build``'s library names are checked to
+follow every header a kernel includes.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _build, ops, ref
 from test_kernels import CASES
 
 torch.set_num_threads(2)
@@ -57,6 +62,7 @@ def _zero_counters():
     yield
     # the CPU route never launches a kernel
     assert all(n == 0 for n in ops.launches.values()), ops.launches
+    assert all(n == 0 for n in ops.flash_designs.values()), ops.flash_designs
 
 
 @pytest.mark.parametrize("case", CASES + LONG_KEY_CASES, ids=str)
@@ -132,3 +138,128 @@ def _t(*shape, dtype=torch.float32):
 def test_flash_attention_rejects_what_the_kernel_does_not_take(call):
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# --- the tensor-core (wgmma) design's arithmetic, emulated on the CPU ---------
+
+_LOG2E = np.float32(1.4426950408889634)
+# keys per tile of csrc/flash_wgmma.cuh (Tile<HD>::BN); 128 for the other dims
+_KEYS_PER_TILE = {64: 128, 128: 64, 256: 32}
+PRECISION_CASE = (1, 512, 512, 14, 2, 64, True, None, 0.0)  # qwen2-0.5b's heads
+
+
+def _top16(x: torch.Tensor) -> torch.Tensor:
+    """x cut to its top 16 bits (a bf16 value, as float32)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _p_pieces(p: torch.Tensor, n: int) -> list:
+    """P as the bf16 pieces that go into the P V products: three pieces, each
+    the top 16 bits of what the earlier ones leave (the kernel's; they sum to
+    p exactly); or one or two pieces rounded to nearest, P_hi = bf16(P) and
+    P_lo = bf16(P - P_hi)."""
+    if n == 3:
+        out = []
+        for _ in range(3):
+            out.append(_top16(p))
+            p = p - out[-1]
+        return out
+    hi = p.bfloat16().float()
+    return [hi] if n == 1 else [hi, (p - hi).bfloat16().float()]
+
+
+def _wgmma_arithmetic(q, k, v, *, causal, window, cap, pieces=3):
+    """The kernel's arithmetic in float32: per tile of keys, float32 scores;
+    m' = fl(m * c) with c = hd^-0.5 log2(e) (log2(e) after a cap);
+    p = 2^fl(s * c - m'), p = 0 on a tile that leaves the row no key;
+    corr = 2^(fl(m_old * c) - m'); acc = corr * acc + sum of piece @ V;
+    out = acc / max(l, 1e-30)."""
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G, bn = H // K, _KEYS_PER_TILE.get(hd, 128)
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    scale = np.float32(hd ** -0.5)
+    c = _LOG2E if cap > 0 else np.float32(scale * _LOG2E)
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros((B, H, T))
+    acc = torch.zeros((B, H, T, hd))
+    t = torch.arange(T)[:, None]
+    for k0 in range(0, S, bn):
+        keys = torch.arange(k0, min(k0 + bn, S))[None, :]
+        s = qf @ kf[:, :, k0:k0 + bn].transpose(-1, -2)
+        if cap > 0:
+            s = cap * torch.tanh(s * scale / cap)
+        ok = torch.ones((T, keys.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= keys <= t
+        if window is not None:
+            ok &= keys > t - window
+        s = torch.where(ok, s, -1e30)
+        has_key = ok.any(-1)
+        m_new = torch.maximum(m, s.amax(-1))
+        mu = torch.where(has_key, m_new * c, torch.inf)
+        p = torch.exp2((s.double() * float(c) - mu.double()[..., None]).float())
+        corr = torch.where(has_key, torch.exp2(m * c - mu), 1.0)
+        l = corr * l + p.sum(-1)
+        m = m_new
+        acc = acc * corr[..., None] + sum(x @ vf[:, :, k0:k0 + bn] for x in _p_pieces(p, pieces))
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _values_over_one_ulp(case, pieces, seed=0) -> int:
+    """Values of the emulated bf16 result more than 1 bf16 ulp (floor 1e-6)
+    from the plain version: chip_smoke.py's gate for the kernel."""
+    causal, window, cap = case[6:]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(case, seed))
+    got = _wgmma_arithmetic(q, k, v, causal=causal, window=window, cap=cap, pieces=pieces)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
+    e = torch.frexp(want.float().abs()).exponent  # |want| in [2^(e-1), 2^e)
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), (e - 8).clamp_min(-133))
+    return int(((got.float() - want.float()).abs() > ulp.clamp_min(1e-6)).sum())
+
+
+@pytest.mark.parametrize("case", CASES + [PRECISION_CASE], ids=str)
+def test_three_pieces_of_p_keep_the_kernel_within_one_bf16_ulp(case):
+    assert _values_over_one_ulp(case, pieces=3) == 0
+
+
+@pytest.mark.parametrize("pieces", [1, 2])
+def test_fewer_pieces_of_p_go_over_one_bf16_ulp(pieces):
+    """Why P takes three pieces: on this seeded case one rounding of P to
+    bf16, and the two-piece split P_hi + P_lo too, leave values more than one
+    bf16 ulp from the plain version, where the sum of p * v cancels."""
+    assert _values_over_one_ulp(PRECISION_CASE, pieces=pieces, seed=1) > 0
+
+
+@pytest.mark.parametrize("hd", ops.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_flash_design_by_dtype_and_head_dim(dtype, hd):
+    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) else "cuda_core"
+    assert ops.flash_design(dtype, hd) == want
+
+
+# --- the build's file names follow every header a kernel includes -------------
+
+@pytest.mark.parametrize("header,changed", [
+    ("hopper.cuh", {"flash_attention"}),        # included through flash_wgmma.cuh
+    ("flash_wgmma.cuh", {"flash_attention"}),
+    ("common.cuh", set(_build.KERNELS)),
+])
+def test_edited_header_gives_a_new_library_name(tmp_path, monkeypatch, header, changed):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = {name: _build._target(name) for name in _build.KERNELS}
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    after = {name: _build._target(name) for name in _build.KERNELS}
+    assert {name for name in _build.KERNELS if before[name] != after[name]} == changed
+
+
+def test_flash_sources_follow_nested_includes():
+    names = [p.name for p in _build._sources("flash_attention")]
+    assert names[0] == "flash_attention.cu"
+    assert {"common.cuh", "flash_wgmma.cuh", "hopper.cuh"} <= set(names)
