@@ -13,7 +13,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   3. kernels   hold each kernel against its plain version on the card at the
                main path's shape (k=10, P=4,698,112) and at a ragged shape,
                and time kernel, plain version and (where one exists) a
-               PyTorch library call with CUDA events; ``flash_attention`` at
+               PyTorch library call with CUDA events; ``gossip_mix`` also at
+               65, 128 and 256 rows (its wide kernel), timed at 128;
+               ``flash_attention`` at
                qwen2-0.5b's layer shape (1, 4096, 14 / 2 heads, 64) in bf16
                and at the eight cases of the reference's kernel tests in
                float32 and bf16, then bf16 cases of its tensor-core (wgmma)
@@ -22,19 +24,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
                key), timed against its plain version and
                ``scaled_dot_product_attention`` at 4096 and (kernel and
                library only) 32768 positions, and at qwen3-0.6b's
-               (1, 4096, 16 / 8, 128) and gemma's (1, 4096, 16 / 16, 256)
-               layer shapes
+               (1, 4096, 16 / 8, 128), gemma's (1, 4096, 16 / 16, 256) and
+               hubert-xlarge's (1, 4096, 16 / 16, 80, bidirectional) layer
+               shapes; where scores are large (q and k three times the unit
+               normal) the wgmma design is gated against a float64
+               evaluation, beside one head's Q K^T from the design alone
   4. agree     small federations (ResNet widths (8, 16)) on the card and on
                the CPU from the same draws: same cohorts, close losses; for
                gossip, close node rows
   5. main path ``Federation(cfg, task)`` on the default device with full
                ResNet-Tiny on CIFAR-like 32x32x3 data, 50 clients, 10 per
                round, 5 local steps of batch 32: 2 rounds each of the
-               synchronous secure-agg, DP (fused) and plain compositions and
-               of the gossip strategy on a ring and on a carbon-tilted
-               Erdos-Renyi graph (2 mixing passes a round); the kernels'
-               launch counters are zeroed before each composition and read
-               after it
+               synchronous compositions (FedAvg with secure-agg, DP (fused)
+               and plain; FedAdam with secure-agg, FedYogi plain, SCAFFOLD
+               with secure-agg, FedNova (no aggregation kernel), and
+               error-feedback top-k at density 0.05 with DP calibrated to
+               (1.2, 1e-5)) and of the gossip strategy on a ring and on a
+               carbon-tilted Erdos-Renyi graph (2 mixing passes a round);
+               the kernels' launch counters are zeroed before each
+               composition and read after it; top-k's selection timed
   6. profile   one more DP round and one more gossip round under
                ``torch.profiler``: device time by kernel and the device's
                busy share
@@ -70,6 +78,8 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 MAIN_K, MAIN_P, MAIN_DIM = 10, 4_698_112, 4_696_394   # ResNet-Tiny cohort rows
 RAGGED_K, RAGGED_P, RAGGED_DIM = 3, 100_003, 99_001
 GOSSIP_RAGGED_K = 7                # a gossip cohort on the ragged P
+GOSSIP_WIDE_K = (65, 128, 256)     # cohorts past the register kernel's 64 rows
+GOSSIP_TIMED_K = 128
 SA_CLIP, SA_BITS = 10.0, 20        # PrivacyConfig secure-agg defaults
 DP_CLIP, DP_BITS, DP_SIGMA = 1.0, 18, 0.8
 
@@ -195,6 +205,28 @@ def kernel_phase(torch, ops, ref) -> dict:
                 library_ms=_time_ms(lambda: torch.matmul(w, x)), bound_ms=b, bound_by=kind)
         del x, got, want
         torch.cuda.empty_cache()
+    # cohorts past the register kernel's 64 rows take the wide kernel
+    for k in GOSSIP_WIDE_K:
+        W = graph.plan("erdos", k, 0, seed=1, p=0.4).mixing
+        w = torch.from_numpy(W).to(dev)
+        x = torch.randn((k, MAIN_P), device=dev, generator=gen)
+        got, want = ops.gossip_mix(x, w), ref.gossip_mix_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert torch.equal(got, want), f"gossip_mix {k}x{MAIN_P} not bitwise: {err}"
+        line = (f"[kernels] gossip_mix      k={k} P={MAIN_P} W=erdos: bitwise (tolerance 0) "
+                f"max_abs_err={err}")
+        del got, want
+        if k == GOSSIP_TIMED_K:
+            b, kind = _bound(2 * k * MAIN_P * 4 + k * k * 4, 2 * k * k * MAIN_P)
+            ms = _time_ms(lambda: ops.gossip_mix(x, w), reps=10)
+            lib_ms = _time_ms(lambda: torch.matmul(w, x), reps=10)
+            results["gossip_mix"].update({f"ms_k{k}": ms, f"library_ms_k{k}": lib_ms,
+                                          f"bound_ms_k{k}": b})
+            line += f"; kernel_ms={ms:.4f} matmul_ms={lib_ms:.4f} bound_ms={b:.4f} ({kind})"
+        print(line)
+        del x
+        torch.cuda.empty_cache()
     for name, r in results.items():
         print(f"[kernels] {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_us={r['bound_ms'] * 1e3:.1f} ({r['bound_by']}) "
@@ -211,20 +243,45 @@ def _task(api, data, parts, rcfg, params, resnet):
         params0=params, clients=build_clients(data["train"], parts), test_data=data["test"])
 
 
-COMPOSITIONS = ("secure_agg", "dp_fused", "plain")
+# synchronous compositions: name -> (algorithm, server_lr, privacy); the
+# server algorithms as examples/federated_mnist.py runs them (FedAdam's
+# server_lr 0.02), top-k as examples/quickstart.py --topk with DP calibrated
+# to the paper's (1.2, 1e-5) budget
+SYNC = {"secure_agg": ("fedavg", 1.0, "secure_agg"),
+        "dp_fused": ("fedavg", 1.0, "dp_fused"),
+        "plain": ("fedavg", 1.0, "plain"),
+        "fedadam_secure_agg": ("fedadam", 0.02, "secure_agg"),
+        "fedyogi_plain": ("fedyogi", 0.02, "plain"),
+        "scaffold_secure_agg": ("scaffold", 1.0, "secure_agg"),
+        "fednova": ("fednova", 1.0, "secure_agg"),
+        "topk_dp": ("fedavg", 1.0, "topk_dp")}
+COMPOSITIONS = tuple(SYNC)
 GOSSIP = {"gossip_ring": dict(graph="ring", mixing_steps=2),
           "gossip_erdos": dict(graph="erdos", gossip_p=0.4, mixing_steps=2, carbon_beta=0.5)}
+# kernels each composition must launch; FedNova averages its deltas without
+# the pipeline, so it launches no aggregation kernel at all
 EXPECTED = {"secure_agg": ("masked_agg",), "dp_fused": ("clip_quant_mask", "masked_agg"),
-            "plain": ("staleness_agg",), "gossip_ring": ("gossip_mix",),
-            "gossip_erdos": ("gossip_mix",)}
+            "plain": ("staleness_agg",), "fedadam_secure_agg": ("masked_agg",),
+            "fedyogi_plain": ("staleness_agg",), "scaffold_secure_agg": ("masked_agg",),
+            "fednova": (), "topk_dp": ("clip_quant_mask", "masked_agg"),
+            "gossip_ring": ("gossip_mix",), "gossip_erdos": ("gossip_mix",)}
+TOPK_DENSITY = 0.05
+DP_BUDGET = dict(target_eps=1.2, delta=1e-5)   # the paper's, calibrated over the run
 
 
-def _privacy(api, DPConfig, name):
-    if name == "secure_agg":
+def _privacy(api, DPConfig, name, rounds: int = 2, sample_rate: float = 0.2):
+    kind = SYNC[name][2] if name in SYNC else "plain"
+    if kind == "secure_agg":
         return api.PrivacyConfig(secure_agg=True, sa_clip=SA_CLIP, sa_bits=SA_BITS)
-    if name == "dp_fused":
+    if kind == "dp_fused":
         return api.PrivacyConfig(dp=DPConfig(clip=DP_CLIP, sigma=DP_SIGMA, bits=DP_BITS),
                                  fuse=True)
+    if kind == "topk_dp":
+        from repro_torch.privacy.dp import calibrated
+
+        dp = calibrated(DPConfig(clip=DP_CLIP, bits=DP_BITS, sample_rate=sample_rate,
+                                 rounds=rounds, **DP_BUDGET))
+        return api.PrivacyConfig(dp=dp, topk_density=TOPK_DENSITY)
     return api.PrivacyConfig()
 
 
@@ -237,12 +294,14 @@ def _topology(api, name):
 def _main_cfg(api, DPConfig, name, rounds: int, max_eval_batches: int):
     """The main path's configuration: full ResNet-Tiny, 50 clients, 10 per
     round, 5 local steps of batch 32, rl_green selection."""
+    algorithm, server_lr, _ = SYNC.get(name, ("fedavg", 1.0, None))
     return api.ExperimentConfig(
         training=api.TrainingConfig(n_clients=50, clients_per_round=10, rounds=rounds,
                                     local_steps=5, batch_size=32, eval_every=1,
-                                    max_eval_batches=max_eval_batches),
-        privacy=_privacy(api, DPConfig, name), topology=_topology(api, name),
-        orchestrator=api.OrchestratorConfig(selection="rl_green"))
+                                    max_eval_batches=max_eval_batches, algorithm=algorithm,
+                                    server_lr=server_lr),
+        privacy=_privacy(api, DPConfig, name, rounds=rounds, sample_rate=10 / 50),
+        topology=_topology(api, name), orchestrator=api.OrchestratorConfig(selection="rl_green"))
 
 
 class _CpuDraws:
@@ -280,10 +339,12 @@ def agree_phase(torch) -> None:
     rcfg = resnet.ResNetConfig(name="small", widths=(8, 16), depths=(1, 1), in_channels=1)
     params = resnet.init_resnet(torch.Generator().manual_seed(0), rcfg, device="cpu")
     for name in COMPOSITIONS:
+        algorithm, server_lr, _ = SYNC[name]
         cfg = api.ExperimentConfig(
             training=api.TrainingConfig(n_clients=6, clients_per_round=3, rounds=2,
-                                        local_steps=2, batch_size=16, eval_every=1),
-            privacy=_privacy(api, DPConfig, name),
+                                        local_steps=2, batch_size=16, eval_every=1,
+                                        algorithm=algorithm, server_lr=server_lr),
+            privacy=_privacy(api, DPConfig, name, rounds=2, sample_rate=3 / 6),
             orchestrator=api.OrchestratorConfig(selection="random"))
         hist = {}
         for device in ("cuda", "cpu"):
@@ -389,8 +450,37 @@ def main_path_phase(torch, ops) -> dict:
             assert all(0.0 < v <= 1.0 for v in hist["spectral_gap"]), hist["spectral_gap"]
         for kname in EXPECTED[name]:
             assert counts[kname] >= cfg.training.rounds, (name, counts)
+        if name == "fednova":
+            assert not any(counts.values()), (name, counts)
+        if name == "topk_dp":
+            print(f"[main] {name}: sigma={cfg.privacy.dp.sigma:.6f} calibrated for "
+                  f"(eps {DP_BUDGET['target_eps']}, delta {DP_BUDGET['delta']}) over "
+                  f"{cfg.training.rounds} rounds at sample rate 0.2; eps_spent="
+                  f"{hist['eps_spent']}")
+            _time_topk(torch, fed)
+        del fed
+        torch.cuda.empty_cache()
     print(f"[main] peak device memory {peak / 2**30:.2f} GiB")
     return total
+
+
+def _time_topk(torch, fed) -> None:
+    """Top-k of the main path alone: ``torch.topk`` over a cohort's (10, dim)
+    magnitudes, and the whole of TopKStage's selection (``torch.topk`` for
+    the k-th magnitude, then the exact-k mask that keeps the lowest indices
+    among ties), on rows of the run's scale."""
+    from repro_torch.api.pipeline import _top_k_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mag = (torch.randn((MAIN_K, MAIN_DIM), device="cuda", generator=gen) * 1e-3).abs()
+    k = max(1, int(round(TOPK_DENSITY * MAIN_DIM)))
+    ms = _time_ms(lambda: torch.topk(mag, k, dim=1), reps=10)
+    mask_ms = _time_ms(lambda: _top_k_mask(mag, k), reps=10)
+    assert bool((_top_k_mask(mag, k).sum(1) == k).all())
+    print(f"[main] top-k over ({MAIN_K}, {MAIN_DIM}) at density {TOPK_DENSITY} (k={k}): "
+          f"torch.topk {ms:.4f} ms; TopKStage selection (topk + exact-k mask) {mask_ms:.4f} ms; "
+          f"EF residual bank {tuple(fed.ctx.ef_residuals.shape)} float32 "
+          f"{fed.ctx.ef_residuals.numel() * 4 / 2**30:.3f} GiB")
 
 
 def profile_phase(torch, name: str) -> None:
@@ -503,11 +593,12 @@ WGMMA_CASES = [
     (1, 200, 200, 16, 16, 256, True, None, 0.0),   # hd 256, ragged
     (2, 256, 256, 4, 2, 256, True, 64, 30.0),      # hd 256, window and cap
 ]
-# (label, B, T, H, K, hd): shapes timed against SDPA; the first is the main one
-FLASH_TIMED = [("", 1, 4096, QWEN2_HEADS, QWEN2_KV, QWEN2_HD),
-               ("_32k", 1, 32768, QWEN2_HEADS, QWEN2_KV, QWEN2_HD),
-               ("_hd128", 1, 4096, 16, 8, 128),    # qwen3-0.6b's layer
-               ("_hd256", 1, 4096, 16, 16, 256)]   # gemma's layer
+# (label, B, T, H, K, hd, causal): shapes timed against SDPA; the first is the main one
+FLASH_TIMED = [("", 1, 4096, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True),
+               ("_32k", 1, 32768, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True),
+               ("_hd128", 1, 4096, 16, 8, 128, True),    # qwen3-0.6b's layer
+               ("_hd256", 1, 4096, 16, 16, 256, True),   # gemma's layer
+               ("_hubert", 1, 4096, 16, 16, 80, False)]  # hubert-xlarge's, bidirectional
 
 
 def _flash_wgmma_case(torch, ops, ref, case, gen) -> float:
@@ -534,26 +625,93 @@ def _over_one_ulp(torch, got, want) -> tuple[int, float]:
     return int((ratio > 1).sum()), ratio.max().item()
 
 
-def _flash_large_scores(torch, ops, ref, gen) -> None:
-    """Not a gate: the wgmma design where scores are large.  Its Q K^T sums
-    run in the tensor cores, whose float32 sums truncate, so with q and k
-    three times the unit normal (scaled scores up to about 40) a few outputs
-    move by more than 1 bf16 ulp.  The CUDA-core design sums with rounded
-    FMAs; its float32 route on the same values does its bf16 arithmetic."""
-    B, T, H, K, hd = PREFILL_B, PREFILL_T, QWEN2_HEADS, QWEN2_KV, QWEN2_HD
-    q = (torch.randn((B, T, H, hd), device="cuda", generator=gen) * 3).bfloat16()
-    k = (torch.randn((B, T, K, hd), device="cuda", generator=gen) * 3).bfloat16()
-    v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
-    want = ref.flash_attention_ref(q, k, v, causal=True)
-    wgmma = ops.flash_attention(q, k, v, causal=True)
-    core = ops.flash_attention(q.float(), k.float(), v.float(), causal=True).bfloat16()
-    (n_w, r_w), (n_c, r_c) = _over_one_ulp(torch, wgmma, want), _over_one_ulp(torch, core, want)
-    print(f"[kernels] flash_attention {(B, T, H, K, hd)} bf16 causal, q and k x3 (not a gate): "
-          f"wgmma design {n_w} of {want.numel()} values over 1 bf16 ulp of the plain result "
-          f"(max {r_w:.2f} ulp); cuda_core design {n_c} (max {r_c:.2f} ulp)")
+def _qk_scores(torch, lib, q, k, order: int):
+    """(T, S) float32 Q K^T of the wgmma design alone for q (T, hd), k (S,
+    hd) bf16: order 1 as ``flash_attention`` sums the 16-column slices of hd
+    (each half of hd chained in the tensor cores, the halves added on the
+    CUDA cores), order 0 all chained in one tensor-core accumulator."""
+    q4, k4 = q[None, :, None], k[None, :, None]
+    out = torch.empty((q.shape[0], k.shape[0]), device="cuda")
+    err = lib.rt_flash_wgmma_scores(q4.data_ptr(), k4.data_ptr(), out.data_ptr(), q.shape[0],
+                                    k.shape[0], q.shape[1], *q4.stride()[:3], *k4.stride()[:3],
+                                    order, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"rt_flash_wgmma_scores: error {err}"
+    torch.cuda.synchronize()
+    return out
 
 
-def flash_kernel_phase(torch, ops, ref) -> dict:
+# (B, T, H, K, hd) of the large-score gate: qwen2-0.5b's heads at the
+# prefill's shape, and the tensor-core design's other head dims
+LARGE_SCORE_CASES = [(4, 2048, 14, 2, 64), (2, 2048, 16, 8, 128),
+                     (1, 2048, 16, 16, 256)]
+
+
+def _attention_f64(torch, q, k, v):
+    """The plain version's causal attention evaluated in float64."""
+    B, T, H, hd = q.shape
+    G = H // k.shape[2]
+    qd = q.double().permute(0, 2, 1, 3)
+    kd = k.double().repeat_interleave(G, 2).permute(0, 2, 3, 1)
+    vd = v.double().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    s = (qd @ kd) * hd ** -0.5
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool, device=q.device).tril(), -torch.inf)
+    return (torch.softmax(s, -1) @ vd).permute(0, 2, 1, 3)
+
+
+def _flash_large_scores(torch, ops, ref, _build, gen) -> None:
+    """Gate: the wgmma design where scores are large (q and k three times the
+    unit normal: scaled scores up to 40-80) is at least as accurate as the
+    float32 plain version it is held to elsewhere: against the same function
+    in float64 it has no more values over 1 bf16 ulp (floor
+    ``FLASH_BF16_FLOOR``) than the float32 plain version has, and none
+    farther off than the plain version's farthest.  Those values
+    are outputs that cancel to 1e-5..1e-4 from terms near 1, where the
+    float32 rounding of the scores themselves (|S| near 300-600) moves them
+    by 1e-6..3e-6; so against the float32 plain version, whose own scores
+    round so, any other float32 evaluation, even the exactly rounded S,
+    lands a few values over 1 ulp (PERF.md §6).  Printed: those counts, the
+    CUDA-core design's (its sequential FMA sums repeat the plain version's),
+    and one head's Q K^T against float64 in the design's order (two chains, the
+    halves of hd, added on the CUDA cores) and chained in the tensor cores."""
+    lib = _build.lib("flash_attention")
+    for B, T, H, K, hd in LARGE_SCORE_CASES:
+        q = (torch.randn((B, T, H, hd), device="cuda", generator=gen) * 3).bfloat16()
+        k = (torch.randn((B, T, K, hd), device="cuda", generator=gen) * 3).bfloat16()
+        v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        exact = _attention_f64(torch, q, k, v)
+        ops.reset_launches()
+        wgmma = ops.flash_attention(q, k, v, causal=True)
+        assert ops.flash_designs["wgmma"] == 1, ops.flash_designs
+        core = ops.flash_attention(q.float(), k.float(), v.float(), causal=True).bfloat16()
+        counts = {name: (_over_one_ulp(torch, got, want), _over_one_ulp(torch, got, exact))
+                  for name, got in (("wgmma", wgmma), ("cuda_core", core), ("plain", want))}
+        del exact, core
+        q0, k0 = q[0, :, 0].contiguous(), k[0, :, 0].contiguous()
+        s64 = q0.double() @ k0.double().T
+        errs = []
+        for order in (1, 0):
+            d = _qk_scores(torch, lib, q0, k0, order).double() - s64
+            errs.append(f"{'design' if order else 'chained'} max {d.abs().max().item():.3e} "
+                        f"mean {d.mean().item():+.3e}")
+        d = (q0.float() @ k0.float().T).double() - s64
+        errs.append(f"float32 matmul max {d.abs().max().item():.3e} mean {d.mean().item():+.3e}")
+        (n32, r32), (n64, r64) = counts["wgmma"]
+        (c32, cr32), (c64, cr64) = counts["cuda_core"]
+        _, (p64, pr64) = counts["plain"]
+        print(f"[kernels] flash_attention {(B, T, H, K, hd)} bf16 causal, q and k x3, of "
+              f"{want.numel()} values over 1 bf16 ulp: wgmma design {n64} of the float64 result "
+              f"(max {r64:.2f} ulp; gate: at most the float32 plain version's {p64}, max {pr64:.2f} "
+              f"ulp) and {n32} of the float32 plain result (max {r32:.2f} ulp); cuda_core design "
+              f"{c64} (max {cr64:.2f}) and {c32} (max {cr32:.2f}); one head's Q K^T (|S| max "
+              f"{s64.abs().max().item():.1f}) against float64: " + "; ".join(errs))
+        assert n64 <= p64 and r64 <= pr64, \
+            f"flash_attention large scores hd {hd}: {n64} values (max {r64}) > {p64} ({pr64})"
+        del q, k, v, want, wgmma
+        torch.cuda.empty_cache()
+
+
+def flash_kernel_phase(torch, ops, ref, _build) -> dict:
     """``flash_attention`` against its plain version, and its times."""
     import torch.nn.functional as F
 
@@ -591,26 +749,28 @@ def flash_kernel_phase(torch, ops, ref) -> dict:
     err = _flash_check(torch, ops, ref, case, torch.bfloat16, gen)
     print(f"[kernels] flash_attention {case[:6]} bf16 causal, the prefill's shape: "
           f"max_abs_err {err:.3e} (<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR})")
-    _flash_large_scores(torch, ops, ref, gen)
+    _flash_large_scores(torch, ops, ref, _build, gen)
     torch.cuda.empty_cache()
     result = {}
-    for label, B, T, H, K, hd in FLASH_TIMED:
-        shape = (B, T, T, H, K, hd, True, None, 0.0)
+    for label, B, T, H, K, hd, causal in FLASH_TIMED:
+        shape = (B, T, T, H, K, hd, causal, None, 0.0)
         q = torch.randn((B, T, H, hd), device="cuda", generator=gen).bfloat16()
         k = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
         v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, out written
-        bound, kind = _bound(nbytes, _causal_flops(B, T, H, hd), BF16_OPS_PER_S)
+        flops = _causal_flops(B, T, H, hd) if causal else 4.0 * B * H * hd * T * T
+        bound, kind = _bound(nbytes, flops, BF16_OPS_PER_S)
         reps = 20 if T <= 4096 else 5
-        ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=True), reps=reps, warmup=1)
+        ms = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal), reps=reps, warmup=1)
         lib_ms = _time_ms(lib, reps=20)
-        vs_lib = (ops.flash_attention(q, k, v, causal=True) - lib().transpose(1, 2)).float()
-        line = (f"[kernels] flash_attention ({B}, {T}, {H}/{K}, {hd}) bf16 causal, "
+        vs_lib = (ops.flash_attention(q, k, v, causal=causal) - lib().transpose(1, 2)).float()
+        line = (f"[kernels] flash_attention ({B}, {T}, {H}/{K}, {hd}) bf16 "
+                f"{'causal' if causal else 'bidirectional'}, "
                 f"{ops.flash_design(q.dtype, hd)} design: kernel_ms={ms:.4f} sdpa_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({kind}) "
                 f"max_abs_diff_vs_sdpa={vs_lib.abs().max().item():.3e}")
@@ -618,7 +778,7 @@ def flash_kernel_phase(torch, ops, ref) -> dict:
                        f"bound_ms{label}": bound})
         if T <= 4096:
             err = _flash_check(torch, ops, ref, shape, torch.bfloat16, gen)
-            plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), reps=10)
+            plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), reps=10)
             print(f"{line} plain_ms={plain_ms:.4f}; max_abs_err vs plain {err:.3e} "
                   f"(<= 1 bf16 ulp, floor {FLASH_BF16_FLOOR})")
             result[f"plain_ms{label}"] = plain_ms
@@ -806,6 +966,9 @@ def _flash_label(name: str) -> str:
     wg = re.search(r"flash_wgmma_kernelILi(\d+)E", name)
     if wg:
         return f"wgmma bf16 hd={wg.group(1)}"
+    probe = re.search(r"flash_wgmma_scores_kernelILi(\d+)ELi(\d)E", name)
+    if probe:
+        return f"wgmma Q K^T probe hd={probe.group(1)} order {probe.group(2)}"
     core = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
     return f"cuda_core {'f32' if core.group(1) == 'f' else 'bf16'} hd={core.group(2)}"
 
@@ -871,7 +1034,7 @@ def main() -> int:
     print(card.stdout.strip().splitlines()[0])
 
     results = kernel_phase(torch, ops, ref)
-    results["flash_attention"] = flash_kernel_phase(torch, ops, ref)
+    results["flash_attention"] = flash_kernel_phase(torch, ops, ref, _build)
     agree_phase(torch)
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")

@@ -13,7 +13,7 @@ from repro_torch.api.federation import STRATEGIES, Federation
 from repro_torch.api.gossip import GossipStrategy
 from repro_torch.api.pipeline import (AggregationContext, ClipStage, FusedCompressStage,
                                       MaskStage, NoiseStage, PrivacyPipeline, QuantizeStage,
-                                      ScaleStage, StageRecord, build_pipeline,
+                                      ScaleStage, StageRecord, TopKStage, build_pipeline,
                                       cohort_wire_bytes, fuse_pipeline,
                                       upload_bytes_per_client)
 from repro_torch.api.runtime import FederatedTask, RuntimeContext
@@ -28,5 +28,5 @@ __all__ = [
     "HistoryRecorder", "MaskStage", "MixEvent", "NoiseStage", "OrchestratorConfig",
     "PrivacyConfig", "PrivacyPipeline", "QuantizeStage", "RoundEvent", "RuntimeContext",
     "ScaleStage", "StageRecord", "STRATEGIES", "SyncStrategy", "TelemetrySink",
-    "TopologyConfig", "TrainingConfig", "upload_bytes_per_client",
+    "TopKStage", "TopologyConfig", "TrainingConfig", "upload_bytes_per_client",
 ]

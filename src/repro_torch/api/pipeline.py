@@ -2,6 +2,7 @@
 
 A :class:`PrivacyPipeline` is an ordered tuple of stages over ParamSpace rows:
 
+    TopKStage      error-feedback top-k sparsification             [rows]
     ClipStage      per-client L2 clip (DP sensitivity bound)       [rows]
     ScaleStage     pre-scale rows by k·(n_i/Σn) (weighted masking) [rows]
     QuantizeStage  fixed-point encode into the uint32 ring         [rows]
@@ -15,8 +16,8 @@ The executor applies the row stages, reduces (the ``masked_agg`` kernel for
 masked rows, a ring sum for quantized ones, the ``staleness_agg`` kernel
 through ``weighted_sum`` otherwise), applies the sum stages and rescales to
 the mean.  Ring rows are uint32 bit patterns in ``int32`` tensors.  The
-pads and the DP noise come from the round's draws object.  ``TopKStage``
-(error-feedback sparsification) is not ported yet.
+pads and the DP noise come from the round's draws object; top-k draws
+nothing.
 """
 from __future__ import annotations
 
@@ -46,15 +47,22 @@ class AggregationContext:
     """Per-call scratch shared along the pipeline: the ParamSpace, the cohort
     size and weights, the draws object (pads and noise) and the weighted-sum
     reduction.  ``QuantizeStage`` sets ``ring``, ``MaskStage`` deposits the
-    pads, and every stage appends its record."""
+    pads, and every stage appends its record.
+
+    ``clients`` are the cohort's client ids, aligned with the rows, and
+    ``residuals`` the EF residual bank ((n_clients, dim) float32, the
+    runtime's): ``TopKStage`` reads those clients' rows and rewrites them in
+    place."""
 
     def __init__(self, pspace: ParamSpace, k: int, weights, draws, weighted_sum: Callable, *,
-                 device):
+                 device, clients=None, residuals: torch.Tensor | None = None):
         self.pspace = pspace
         self.k = int(k)
         self.weights = np.asarray(weights, np.float64)
         self.draws = draws
         self.weighted_sum = weighted_sum
+        self.clients = None if clients is None else np.asarray(clients, np.int64)
+        self.residuals = residuals
         self.ring: tuple[float, int] | None = None  # (clip, bits) once quantized
         self.masks: torch.Tensor | None = None
         self.records: list[StageRecord] = []
@@ -63,6 +71,61 @@ class AggregationContext:
 
     def record(self, stage: str, **info) -> None:
         self.records.append(StageRecord(stage, info))
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKStage:
+    """Error-feedback top-k sparsification.
+
+    Each client keeps the ``density·dim`` largest magnitudes of (delta +
+    residual) and banks the rest as its residual for its next round, so
+    nothing is dropped, only delayed; per row, exactly,
+
+        sparse + residual_new == delta + residual_old.
+
+    Selection is exact-k by index, as the reference's ``lax.top_k``: where
+    magnitudes tie at the k-th largest, the lower indices are kept.
+    Without a residual bank (a hand-composed pipeline outside a strategy)
+    it is one-shot top-k.  It comes before ``ClipStage``, so the clip bounds
+    what leaves the client.  Its record carries (density, k_kept,
+    index_bits), which price the (index, value) upload.
+    """
+
+    density: float
+    name = "topk"
+    scope = "rows"
+
+    def __post_init__(self):
+        if not 0.0 < self.density <= 1.0:
+            raise ValueError(f"topk density must be in (0, 1], got {self.density}")
+
+    def apply(self, rows, ctx: AggregationContext):
+        k_keep = max(1, int(round(self.density * rows.shape[1])))
+        if ctx.residuals is not None:
+            if ctx.clients is None:
+                raise ValueError("TopKStage has a residual bank but no cohort client ids; "
+                                 "pass clients= to RuntimeContext.aggregate")
+            idx = torch.as_tensor(ctx.clients, device=rows.device)
+            corrected = rows + ctx.residuals[idx]
+        else:
+            corrected = rows
+        keep = _top_k_mask(corrected.abs(), k_keep)
+        sparse = torch.where(keep, corrected, 0.0)
+        if ctx.residuals is not None:
+            # a client twice in one cohort: one entry's feedback wins
+            ctx.residuals[idx] = corrected - sparse
+        ctx.record(self.name, density=self.density, k_kept=k_keep, index_bits=32)
+        return sparse
+
+
+def _top_k_mask(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """(rows, n) bool, True at each row's k largest values; where values tie
+    at the k-th largest, the lowest indices (the selection of ``lax.top_k``)."""
+    kth = torch.topk(mag, k, dim=1).values[:, -1:]
+    above = mag > kth
+    tied = mag == kth
+    room = k - above.sum(1, keepdim=True)
+    return above | (tied & (torch.cumsum(tied, dim=1, dtype=torch.int32) <= room))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,26 +323,27 @@ def cohort_wire_bytes(records, cohort: int, model_bytes: float, dim: int) -> flo
 def build_pipeline(privacy) -> PrivacyPipeline:
     """Map a ``PrivacyConfig`` onto the canonical compositions:
 
-        dp set     : clip -> quantize -> mask -> [kernel sum] -> noise, /k
-        secure_agg : scale -> quantize -> mask -> [kernel sum], /k
-        neither    : [weighted-sum kernel]  (plain Eq. 6)
+        dp set     : [topk ->] clip -> quantize -> mask -> [kernel sum] -> noise, /k
+        secure_agg : [topk ->] scale -> quantize -> mask -> [kernel sum], /k
+        neither    : [topk ->] [weighted-sum kernel]  (plain Eq. 6)
 
+    ``privacy.topk_density > 0`` puts the EF sparsifier first;
     ``privacy.fuse`` (default) collapses clip -> quantize -> mask into the
     fused kernel.
     """
-    if privacy.topk_density:
-        raise NotImplementedError("TopKStage (topk_density > 0) is not ported yet")
+    topk = (TopKStage(privacy.topk_density),) if privacy.topk_density else ()
     if privacy.dp is not None:
         dp = privacy.dp
         pipe = PrivacyPipeline(
-            stages=(ClipStage(dp.clip), QuantizeStage(dp.clip, dp.bits), MaskStage(),
-                    NoiseStage(dp)),
+            stages=topk + (ClipStage(dp.clip), QuantizeStage(dp.clip, dp.bits), MaskStage(),
+                           NoiseStage(dp)),
             weighting="uniform",
         )
         return fuse_pipeline(pipe) if privacy.fuse else pipe
     if privacy.secure_agg:
         return PrivacyPipeline(
-            stages=(ScaleStage(), QuantizeStage(privacy.sa_clip, privacy.sa_bits), MaskStage()),
+            stages=topk + (ScaleStage(), QuantizeStage(privacy.sa_clip, privacy.sa_bits),
+                           MaskStage()),
             weighting="uniform",
         )
-    return PrivacyPipeline()
+    return PrivacyPipeline(stages=topk)

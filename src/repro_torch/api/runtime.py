@@ -33,6 +33,7 @@ from repro_torch.fl import server as server_mod
 from repro_torch.fl.paramspace import ParamSpace
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.optim import optimizers as opt_mod
+from repro_torch.utils import tree_zeros_like
 
 
 @dataclasses.dataclass
@@ -72,7 +73,12 @@ class RuntimeContext:
         params0 = {n: p.to(device=device, dtype=torch.float32) for n, p in task.params0.items()}
         self.pspace = ParamSpace.build(params0)
         self.loss_fn = task.loss_fn
-        self.local_opt = opt_mod.momentum(train.client_lr, beta=train.client_momentum)
+        # SCAFFOLD's correction assumes plain SGD clients (Karimireddy et al.,
+        # Alg. 1): momentum would apply the correction twice
+        if train.algorithm == "scaffold":
+            self.local_opt = opt_mod.sgd(train.client_lr)
+        else:
+            self.local_opt = opt_mod.momentum(train.client_lr, beta=train.client_momentum)
         self.trainer = client_mod.make_local_trainer(task.loss_fn, self.local_opt)
         self.cohort_trainer = client_mod.make_cohort_trainer(task.loss_fn, self.local_opt,
                                                              self.pspace)
@@ -86,12 +92,21 @@ class RuntimeContext:
         self.orch_state = orch.init_state(train.n_clients,
                                           stale_in_state=cfg.orchestrator.stale_in_state,
                                           device=device)
+        # SCAFFOLD's control variate of every client, float32 on the run's device
+        self.c_locals = ([tree_zeros_like(params0, torch.float32)
+                          for _ in range(train.n_clients)]
+                         if train.algorithm == "scaffold" else None)
 
         sample = self._to_device(task.clients[0].stacked_steps(train.batch_size,
                                                                train.local_steps, 0))
         self.round_flops = client_mod.local_round_flops(self.trainer, params0, sample)
         self.model_bytes = float(self.pspace.nbytes)
         self.param_dim = self.pspace.dim
+        # the error-feedback residual bank of TopKStage: one ParamSpace row per
+        # client, read and rewritten by every aggregate call that sparsifies
+        self.ef_residuals = (
+            torch.zeros((train.n_clients, self.pspace.dim), dtype=torch.float32, device=device)
+            if any(s.name == "topk" for s in self.pipeline.stages) else None)
 
     def _to_device(self, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -112,9 +127,11 @@ class RuntimeContext:
             mus = torch.zeros(len(sel), dtype=torch.float32, device=self.device)
         return batches, mus
 
-    def train_cohort(self, params, sel, step: int) -> client_mod.CohortResult:
-        """One local round of every selected client against ``params``."""
-        return self.cohort_trainer(params, *self._cohort_inputs(sel, step))
+    def train_cohort(self, params, sel, step: int, corrections=None) -> client_mod.CohortResult:
+        """One local round of every selected client against ``params``;
+        ``corrections`` stacks SCAFFOLD's per-client ``c - c_i`` as (k, ...)
+        tensors (None: no correction)."""
+        return self.cohort_trainer(params, *self._cohort_inputs(sel, step), corrections)
 
     def train_cohort_rows(self, param_rows: torch.Tensor, sel,
                           step: int) -> client_mod.CohortResult:
@@ -126,10 +143,17 @@ class RuntimeContext:
                 self.loss_fn, self.local_opt, self.pspace)
         return self._row_trainer(param_rows, *self._cohort_inputs(sel, step))
 
-    def aggregate(self, rows: torch.Tensor, weights, draws) -> tuple[torch.Tensor, list[StageRecord]]:
-        """Run the privacy pipeline over (k, P) delta rows -> (MEAN row, records)."""
+    def aggregate(self, rows: torch.Tensor, weights, draws,
+                  clients=None) -> tuple[torch.Tensor, list[StageRecord]]:
+        """Run the privacy pipeline over (k, P) delta rows -> (MEAN row, records).
+
+        ``clients``: the cohort's client ids, aligned with ``rows``; a
+        pipeline that sparsifies needs them to read and rewrite, in place,
+        those clients' rows of the EF residual bank.
+        """
         actx = AggregationContext(self.pspace, len(weights), weights, draws, self.weighted_sum,
-                                  device=self.device)
+                                  device=self.device, clients=clients,
+                                  residuals=self.ef_residuals)
         mean_row = self.pipeline.aggregate(rows, actx)
         return mean_row, actx.records
 

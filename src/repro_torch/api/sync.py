@@ -3,7 +3,10 @@
 One ``run`` is ``rounds`` lock-step rounds: carbon-aware selection, one
 local round per selected client, the privacy pipeline and its kernels, one
 server update, then emissions accounting and the MARL reward, with one
-:class:`~repro_torch.api.telemetry.RoundEvent` per round.
+:class:`~repro_torch.api.telemetry.RoundEvent` per round.  SCAFFOLD adds its
+control variates around the round (each client's correction ``c - c_i`` in
+training, then its new ``c_i`` and the server's ``c``); FedNova bypasses the
+pipeline and its kernels and averages step-normalized deltas.
 
 Every random draw of a round comes from ``self.draws`` (a seeded
 :class:`~repro_torch.draws.Draws` on the run's device by default).
@@ -12,6 +15,7 @@ Replacing it after construction replays another run's draws.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.api.config import ExperimentConfig
 from repro_torch.api.pipeline import cohort_wire_bytes
@@ -19,6 +23,8 @@ from repro_torch.api.runtime import RuntimeContext
 from repro_torch.api.telemetry import SYNC_HISTORY_KEYS, RoundEvent
 from repro_torch.core import carbon as carbon_mod
 from repro_torch.draws import Draws
+from repro_torch.fl import client as client_mod
+from repro_torch.fl import server as server_mod
 from repro_torch.privacy import dp as dp_mod
 from repro_torch.privacy.accountant import SubsampledAccountant
 
@@ -30,9 +36,7 @@ class SyncStrategy:
     history_keys = SYNC_HISTORY_KEYS
 
     def validate(self, cfg: ExperimentConfig) -> None:
-        if cfg.training.algorithm not in ("fedavg", "fedprox"):
-            raise NotImplementedError(
-                f"algorithm {cfg.training.algorithm!r} is not ported yet (fedavg and fedprox are)")
+        pass  # every algorithm and selection combination is defined synchronously
 
     def setup(self, ctx: RuntimeContext) -> None:
         self.draws = Draws(ctx.train.seed, ctx.device)
@@ -80,14 +84,37 @@ class SyncStrategy:
             sel = np.flatnonzero(mask.cpu().numpy())[: train.clients_per_round]
 
             weights = [len(ctx.clients[ci]) for ci in sel]
-            res = ctx.train_cohort(ctx.server_state.params, sel, rnd)
+            scaffold = train.algorithm == "scaffold"
+            corrs = None
+            if scaffold:
+                c = ctx.server_state.c
+                corrs = {n: torch.stack([c[n] - ctx.c_locals[ci][n] for ci in sel]) for n in c}
+            res = ctx.train_cohort(ctx.server_state.params, sel, rnd, corrections=corrs)
             losses = res.loss_last.tolist()
 
-            mean_row, records = ctx.aggregate(res.rows, weights, self.draws)
-            mean_delta = ctx.pspace.unravel(mean_row)
-            self._record_privacy(ctx, records, len(sel))
-            wire = cohort_wire_bytes(records, len(sel), ctx.model_bytes, ctx.param_dim)
+            c_deltas = []
+            if scaffold:
+                for j, ci in enumerate(sel):
+                    new_ci = client_mod.scaffold_new_control(
+                        ctx.c_locals[ci], ctx.server_state.c, ctx.pspace.unravel(res.rows[j]),
+                        res.n_steps[j], train.client_lr)
+                    c_deltas.append({n: new_ci[n] - ctx.c_locals[ci][n] for n in new_ci})
+                    ctx.c_locals[ci] = new_ci
+
+            if train.algorithm == "fednova":
+                # no pipeline and no aggregation kernel: float32 rows both ways
+                deltas = [ctx.pspace.unravel(res.rows[j]) for j in range(len(sel))]
+                mean_delta = server_mod.fednova_mean_delta(deltas, weights, res.n_steps.tolist())
+                wire = 2 * len(sel) * ctx.model_bytes
+            else:
+                mean_row, records = ctx.aggregate(res.rows, weights, self.draws, clients=sel)
+                mean_delta = ctx.pspace.unravel(mean_row)
+                self._record_privacy(ctx, records, len(sel))
+                wire = cohort_wire_bytes(records, len(sel), ctx.model_bytes, ctx.param_dim)
             ctx.server_state = ctx.server_apply(ctx.server_state, mean_delta)
+            if scaffold and c_deltas:
+                ctx.server_state = server_mod.scaffold_update_c(ctx.server_state, c_deltas,
+                                                                train.n_clients)
 
             sel_mask, co2, dur = ctx.round_accounting(sel, t_hours)
             self.cum_co2 += co2

@@ -2,20 +2,23 @@
 
 The local trainer runs a client's whole local round, one unrolled step per
 stacked batch, and returns the model delta (w_local - w_global).  Each
-step's gradient gets the FedProx term ``mu·(p - p0)``, with MetaFed's
-adaptive mu_i = mu_base·(2 - C_i) (Eq. 7) computed by :func:`adaptive_mu`.
+step's gradient becomes ``g + mu·(p - p0) + c``: the FedProx term, with
+MetaFed's adaptive mu_i = mu_base·(2 - C_i) (Eq. 7) computed by
+:func:`adaptive_mu`, and SCAFFOLD's correction ``c = c_global - c_i``
+(none for the other algorithms).
 The cohort trainer loops over the selected clients and writes their deltas
 straight into ``(k, P)`` float32 rows in the experiment's ParamSpace order,
 the representation every aggregation path consumes.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.fl.paramspace import ParamSpace
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.utils import tree_zeros_like
 
 Params = dict[str, torch.Tensor]
 
@@ -37,14 +40,16 @@ class CohortResult(NamedTuple):
 
 
 def make_local_trainer(loss_fn: Callable, opt: Optimizer) -> Callable:
-    """run(params_global, batches, mu) -> LocalResult.
+    """run(params_global, batches, mu, correction=None) -> LocalResult.
 
     ``loss_fn(params, batch) -> (scalar, metrics)``; ``batches`` is a dict
     of (n_steps, batch, ...) tensors on the parameters' device; ``mu`` is
-    the FedProx coefficient (0 disables it).
+    the FedProx coefficient (0 disables it); ``correction`` is SCAFFOLD's
+    ``c - c_i`` parameter dict (None adds nothing).
     """
 
-    def run(params_global: Params, batches: dict, mu) -> LocalResult:
+    def run(params_global: Params, batches: dict, mu,
+            correction: Optional[Params] = None) -> LocalResult:
         n_steps = next(iter(batches.values())).shape[0]
         p0 = {n: p.detach() for n, p in params_global.items()}
         params, state = p0, opt.init(p0)
@@ -55,6 +60,8 @@ def make_local_trainer(loss_fn: Callable, opt: Optimizer) -> Callable:
             grads = torch.autograd.grad(loss, list(leaves.values()))
             with torch.no_grad():
                 g = {n: gi + mu * (params[n] - p0[n]) for n, gi in zip(leaves, grads)}
+                if correction is not None:
+                    g = {n: gi + correction[n] for n, gi in g.items()}
                 params, state = opt.update(params, g, state)
             losses.append(loss.detach())
         with torch.no_grad():
@@ -65,14 +72,17 @@ def make_local_trainer(loss_fn: Callable, opt: Optimizer) -> Callable:
 
 
 def _run_cohort(single: Callable, pspace: ParamSpace, start: Callable[[int], Params],
-                batches: dict, mus: torch.Tensor, device: torch.device) -> CohortResult:
+                batches: dict, mus: torch.Tensor, device: torch.device,
+                corrections: Optional[Params] = None) -> CohortResult:
     """One local round per cohort member j from the model ``start(j)``, its
-    delta written into row j of a (k, dim) float32 matrix."""
+    delta written into row j of a (k, dim) float32 matrix; ``corrections``
+    stacks member j's SCAFFOLD correction at index j of each tensor."""
     k = mus.shape[0]
     rows = torch.empty((k, pspace.dim), dtype=torch.float32, device=device)
     n_steps, first, last = [], [], []
     for j in range(k):
-        res = single(start(j), {n: v[j] for n, v in batches.items()}, mus[j])
+        corr = None if corrections is None else {n: c[j] for n, c in corrections.items()}
+        res = single(start(j), {n: v[j] for n, v in batches.items()}, mus[j], corr)
         pspace.ravel_into(rows[j], res.delta)
         n_steps.append(res.n_steps)
         first.append(res.loss_first)
@@ -82,14 +92,18 @@ def _run_cohort(single: Callable, pspace: ParamSpace, start: Callable[[int], Par
 
 
 def make_cohort_trainer(loss_fn: Callable, opt: Optimizer, pspace: ParamSpace) -> Callable:
-    """run(params_global, batches, mus) -> CohortResult, one local round per
-    selected client against the shared ``params_global``; ``batches`` has a
-    leading cohort axis (k, n_steps, batch, ...) and ``mus`` is (k,)."""
+    """run(params_global, batches, mus, corrections=None) -> CohortResult, one
+    local round per selected client against the shared ``params_global``;
+    ``batches`` has a leading cohort axis (k, n_steps, batch, ...), ``mus``
+    is (k,), and ``corrections`` (SCAFFOLD) stacks the k clients'
+    corrections as (k, ...) tensors."""
     single = make_local_trainer(loss_fn, opt)
 
-    def run(params_global: Params, batches: dict, mus: torch.Tensor) -> CohortResult:
+    def run(params_global: Params, batches: dict, mus: torch.Tensor,
+            corrections: Optional[Params] = None) -> CohortResult:
         device = next(iter(params_global.values())).device
-        return _run_cohort(single, pspace, lambda j: params_global, batches, mus, device)
+        return _run_cohort(single, pspace, lambda j: params_global, batches, mus, device,
+                           corrections)
 
     return run
 
@@ -108,6 +122,20 @@ def make_gossip_cohort_trainer(loss_fn: Callable, opt: Optimizer, pspace: ParamS
                            mus, param_rows.device)
 
     return run
+
+
+def zero_correction(params: Params) -> Params:
+    """SCAFFOLD's correction that changes nothing: float32 zeros."""
+    return tree_zeros_like(params, torch.float32)
+
+
+@torch.no_grad()
+def scaffold_new_control(c_i: Params, c: Params, delta: Params, n_steps, lr: float) -> Params:
+    """SCAFFOLD option II: c_i+ = c_i - c - delta / (K·lr), with K the local
+    step count (at least 1), the scale formed in float32."""
+    k = torch.clamp_min(torch.tensor(float(n_steps), dtype=torch.float32), 1.0)
+    scale = float(1.0 / (k * lr))
+    return {n: c_i[n] - c[n] - scale * d for n, d in delta.items()}
 
 
 def adaptive_mu(mu_base: float, capability: torch.Tensor) -> torch.Tensor:

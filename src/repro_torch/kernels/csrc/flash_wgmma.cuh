@@ -32,9 +32,13 @@
 // each tile's P V starts a fresh accumulator, and the CUDA cores merge it,
 // o = fma(o, corr, o_tile), rounded to nearest.  (Kept in the tensor cores
 // across a 2048-key row, the truncation moved small outputs of qwen2-0.5b's
-// layers by up to 2.4 bf16 ulps.)  Q K^T still sums in the tensor cores:
-// where scores are large (scaled scores near 40) a few outputs move by more
-// than one ulp; chip_smoke.py reports how many.  The exponentials
+// layers by up to 2.4 bf16 ulps.)  Q K^T likewise: chained over hd in one
+// accumulator, the truncation repeats once per 16 columns of hd, so each
+// half of hd is a chain of its own and the CUDA cores add the two (issue_qk,
+// finish_qk): where scores are large (q and k three times the unit normal)
+// the design's outputs then sit over 1 bf16 ulp of a float64 evaluation
+// less often, and less far, than the float32 plain version's
+// (chip_smoke.py's gate; PERF.md §6).  The exponentials
 // are 2^(s * hd^-0.5 * log2(e) - m') on the special-function unit, with the
 // row max m' rounded once per tile and reused in the rescaling, so its
 // rounding cancels.  tests/test_torch_flash.py emulates this arithmetic on
@@ -73,8 +77,9 @@ template <int HD>
 struct Tile {
   static_assert(HD % 64 == 0, "a row is whole 128-byte swizzle rows");
   // keys per tile: the scores, P's pieces, O and one tile's P V share a
-  // consumer's 240 registers (BN/2 + 3*BN/8 + HD/2 + 32 of them), so a
-  // wider head takes fewer keys
+  // consumer's 240 registers (BN/2 + 3*BN/8 + HD/2 + 32 of them, and BN/2
+  // for Q K^T's second chain while the scores are summed), so a wider head
+  // takes fewer keys
   static constexpr int BN = HD == 64 ? 128 : HD == 128 ? 64 : 32;
   static constexpr int STAGES = 4;                 // K/V ring depth
   static constexpr int NCB = HD / 64;              // 128-byte column blocks of a row
@@ -127,20 +132,67 @@ __device__ __forceinline__ int quad_or(int x) {
   return x | __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Issues S = Q K^T for one warpgroup's 64 rows (not waited for): Q and K
-// K-major, 16 columns of a 64-column block per k step
+// S = Q K^T for one warpgroup's 64 rows, Q and K K-major: HD/16 slices of
+// 16 columns of hd, each one m64nBNk16 wgmma.  Inside one wgmma the tensor
+// cores cut each product and the accumulator toward zero to a multiple of
+// 2^(E - 25), E the largest exponent among them, and cut the sum toward zero
+// to float32 (scripts/flash_qk_probe.py measures it; tests/test_torch_flash.py
+// models it bit for bit).  Chaining every slice into one accumulator repeats
+// that cut, all of one sign, HD/16 times at |S|.  So the two halves of hd
+// are two chains, into sc and st (BN/2 more registers, live only while the
+// scores are summed), issued together; after the wait the CUDA cores add
+// them, S = sc + st rounded to nearest.
 template <int HD, int BN>
-__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t q_wg, uint32_t k_tile) {
+__device__ __forceinline__ void qk_slice(float (&d)[BN / 2], uint32_t q_wg, uint32_t k_tile,
+                                         int kk, int scale_d) {
   using C = Tile<HD>;
+  const uint32_t off = (kk % 4) * 32;
+  wgmma_ss<BN>(d, desc_sw128(q_wg + (kk / 4) * C::Q_CB + off, 16, 1024),
+               desc_sw128(k_tile + (kk / 4) * C::KV_CB + off, 16, 1024), scale_d);
+}
+
+template <int BN>
+__device__ __forceinline__ void fence_scores(float (&sc)[BN / 2], float (&st)[BN / 2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    fence_reg(sc[i]);
+    fence_reg(st[i]);
+  }
+}
+
+// issues both chains (not waited for)
+template <int HD, int BN>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], float (&st)[BN / 2],
+                                         uint32_t q_wg, uint32_t k_tile) {
+  constexpr int NS = HD / 16;
+  fence_scores<BN>(sc, st);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) qk_slice<HD, BN>(sc, q_wg, k_tile, kk, kk > 0);
+#pragma unroll
+  for (int kk = NS / 2; kk < NS; ++kk) qk_slice<HD, BN>(st, q_wg, k_tile, kk, kk > NS / 2);
+  wgmma_commit();
+}
+
+// after the wait: S = sc + st, rounded to nearest
+template <int BN>
+__device__ __forceinline__ void finish_qk(float (&sc)[BN / 2], float (&st)[BN / 2]) {
+  fence_scores<BN>(sc, st);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = __fadd_rn(sc[i], st[i]);
+}
+
+// The order before the chains, kept for chip_smoke.py's look at the scores
+// (flash_wgmma_scores_kernel): every slice chained into sc in the tensor
+// cores (scale-d 1 after the first)
+template <int HD, int BN>
+__device__ __forceinline__ void issue_qk_chained(float (&sc)[BN / 2], uint32_t q_wg,
+                                                 uint32_t k_tile) {
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss<BN>(sc, desc_sw128(q_wg + (kk / 4) * C::Q_CB + off, 16, 1024),
-                 desc_sw128(k_tile + (kk / 4) * C::KV_CB + off, 16, 1024), kk > 0);
-  }
+  for (int kk = 0; kk < HD / 16; ++kk) qk_slice<HD, BN>(sc, q_wg, k_tile, kk, kk > 0);
   wgmma_commit();
 }
 
@@ -335,14 +387,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // P V for 64 columns, in the tensor cores.  Their float32 sums truncate,
     // so adding tile after tile there drifts with the row's length; o is
     // rounded to nearest, once per tile.
-    float o[HD / 2], ot[32], sc[BN / 2];
+    float o[HD / 2], ot[32], sc[BN / 2], st[BN / 2];
     uint32_t pa[3][BN / 16][4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 32; ++i) ot[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) sc[i] = st[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
 
     // one tile: softmax of S (already issued), its P V merged into o, then,
@@ -350,9 +402,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     // conditional, so ptxas keeps the products asynchronous
     auto step = [&](const int it, auto not_last) {
       const int s = it % ST;
-      wgmma_wait<0>();  // S of tile it
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
+      wgmma_wait<0>();  // S of tile it, in two chains
+      finish_qk<BN>(sc, st);
       softmax_tile<BN>(sc, pa, m, l, corr, p, c, kv_begin + it * BN, t_lo, t0, t1, c2);
       // the softmax's results are complete before this consumer's turn:
       // otherwise the compiler sinks the split of P into it
@@ -369,7 +420,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       if constexpr (decltype(not_last)::value) {
         const int s1 = (it + 1) % ST;
         mbar_wait(k_full + 8 * s1, ((it + 1) / ST) & 1);
-        issue_qk<HD, BN>(sc, q_wg, sk + s1 * C::KV_BYTES);
+        issue_qk<HD, BN>(sc, st, q_wg, sk + s1 * C::KV_BYTES);
         named_bar_arrive(bar_other, 256);
       } else if (cw == 0) {
         named_bar_arrive(bar_other, 256);
@@ -382,7 +433,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       if (cw == 1) named_bar_arrive(bar_other, 256);
       named_bar_sync(bar_mine, 256);
       mbar_wait(k_full, 0);
-      issue_qk<HD, BN>(sc, q_wg, sk);
+      issue_qk<HD, BN>(sc, st, q_wg, sk);
       named_bar_arrive(bar_other, 256);
       for (int it = 0; it + 1 < n_tiles; ++it) step(it, std::true_type{});
       step(n_tiles - 1, std::false_type{});
@@ -401,6 +452,57 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * jn + c2) =
             __floats2bfloat162_rn(o[4 * jn + 2 * r] / den, o[4 * jn + 2 * r + 1] / den);
     }
+  }
+}
+
+// Q K^T alone, for chip_smoke.py's look at the scores' precision: one
+// 64-row query tile (blockIdx.x) against one key tile (blockIdx.y) of batch
+// 0 and head 0, loaded and summed as the consumers do (ORDER 1) or with
+// every slice chained in the tensor cores (ORDER 0); written to s_out, a
+// (T, S) float32 matrix.
+template <int HD, int ORDER>
+__global__ void __launch_bounds__(128, 1)
+flash_wgmma_scores_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk, float* s_out, int T, int S) {
+  using C = Tile<HD>;
+  constexpr int BN = C::BN;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + C::Q_BYTES;
+  const uint32_t bar = sk + C::KV_BYTES;
+  const int q0 = blockIdx.x * 64, k0 = blockIdx.y * BN;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, C::Q_BYTES + C::KV_BYTES);
+    for (int c = 0; c < C::NCB; ++c) {
+      tma_load_4d(sq + c * C::Q_CB, &tq, 64 * c, 0, q0, 0, bar);
+      tma_load_4d(sk + c * C::KV_CB, &tk, 64 * c, 0, k0, 0, bar);
+    }
+  }
+  mbar_wait(bar, 0);
+  float sc[BN / 2], st[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = st[i] = 0.f;
+  if constexpr (ORDER == 0) {
+    issue_qk_chained<HD, BN>(sc, sq, sk);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
+  } else {
+    issue_qk<HD, BN>(sc, st, sq, sk);
+    wgmma_wait<0>();
+    finish_qk<BN>(sc, st);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int t = q0 + warp * 16 + lane / 4 + ((i & 2) ? 8 : 0);
+    const int key = k0 + 8 * (i / 4) + c2 + (i & 1);
+    if (t < T && key < S) s_out[static_cast<long long>(t) * S + key] = sc[i];
   }
 }
 
@@ -473,6 +575,29 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T,
   if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   flash_wgmma_kernel<HD>
       <<<static_cast<unsigned>(blocks), kThreads, C::SMEM, stream>>>(tq, tk, tv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// flash_wgmma_scores_kernel over q (1, T, 1, HD) and k (1, S, 1, HD) into s_out
+// (T, S); T a multiple of 64 and S of the key tile.  Returns as launch().
+template <int HD, int ORDER>
+int launch_scores(const void* q, const void* k, float* s_out, int T, int S, const long long* qs,
+                  const long long* ks, cudaStream_t stream) {
+  using C = Tile<HD>;
+  if (T <= 0 || S <= 0 || T % 64 || S % C::BN) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk;
+  CUresult r = encode(fn, &tq, q, HD, 1, T, 1, qs[0], qs[1], qs[2], kBM);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  r = encode(fn, &tk, k, HD, 1, S, 1, ks[0], ks[1], ks[2], C::BN);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  const int smem = C::Q_BYTES + C::KV_BYTES + 8 + 1024;
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_scores_kernel<HD, ORDER>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_wgmma_scores_kernel<HD, ORDER>
+      <<<dim3(T / 64, S / C::BN), 128, smem, stream>>>(tq, tk, s_out, T, S);
   return static_cast<int>(cudaGetLastError());
 }
 

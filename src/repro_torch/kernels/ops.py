@@ -141,20 +141,16 @@ def clip_quant_mask(rows: torch.Tensor, masks: torch.Tensor, clip: float, bits: 
     return out
 
 
-# kMaxK of csrc/gossip_mix.cu: W in shared memory, a column's k inputs in registers
-GOSSIP_MAX_K = 64
-
-
 def gossip_mix(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
     """(k, P) float32 rows, (k, k) float32 mixing matrix -> (k, P) W @ rows,
-    out of place; 1 <= k <= ``GOSSIP_MAX_K`` on every device."""
+    out of place, for any k >= 1."""
     if rows.ndim != 2:
         raise ValueError(f"rows must be (k, P), got {tuple(rows.shape)}")
     k, P = rows.shape
     _check(rows, "rows", torch.float32, (k, P), rows.device)
     _check(mixing, "mixing", torch.float32, (k, k), rows.device)
-    if not 0 < k <= GOSSIP_MAX_K:
-        raise ValueError(f"gossip_mix takes 1 to {GOSSIP_MAX_K} rows, got k={k}")
+    if k < 1:
+        raise ValueError("gossip_mix takes at least one row")
     if not _route(rows):
         return ref.gossip_mix_ref(rows, mixing)
     out = torch.empty((k, P), dtype=torch.float32, device=rows.device)

@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.privacy import accountant
+from repro_torch.privacy import accountant, quantize
 
 
 class DPConfig(NamedTuple):
@@ -23,11 +23,23 @@ class DPConfig(NamedTuple):
     rounds: int = 100
 
 
+def calibrated(cfg: DPConfig) -> DPConfig:
+    """``cfg`` with sigma filled from the RDP accountant for its budget
+    (``target_eps``, ``delta``) over ``rounds`` at ``sample_rate``."""
+    sigma = accountant.calibrate_sigma(cfg.target_eps, cfg.sample_rate, cfg.rounds, cfg.delta)
+    return cfg._replace(sigma=sigma)
+
+
 def clip_rows(rows: torch.Tensor, clip: float) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-client L2 clip of (k, P) rows -> (clipped rows, (k,) pre-clip norms)."""
     rows = rows.to(torch.float32)
     norms = ref.row_norms(rows)
     return rows * ref.clip_scale(norms, clip), norms[:, 0]
+
+
+def effective_sensitivity(cfg: DPConfig, dim: int) -> float:
+    """L2 sensitivity including the worst-case deterministic rounding error."""
+    return cfg.clip + quantize.quant_error_bound(cfg.clip, cfg.bits) * (dim**0.5)
 
 
 def add_noise(draws, summed: torch.Tensor, cfg: DPConfig) -> torch.Tensor:

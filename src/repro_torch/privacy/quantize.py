@@ -40,3 +40,8 @@ def ring_sum(rows: torch.Tensor) -> torch.Tensor:
     """(k, P) int32 ring rows -> (P,) int32 ring sum mod 2^32."""
     return ref.ring_to_int32(rows.to(torch.int64).sum(0))
 
+
+
+def quant_error_bound(clip: float, bits: int) -> float:
+    """Worst-case per-element rounding error after decode."""
+    return clip / ((1 << (bits - 1)) - 1)

@@ -1,4 +1,4 @@
-"""Shape helpers shared across the port."""
+"""Shape and parameter-dict helpers shared across the port."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +22,10 @@ def pad_to(x: torch.Tensor, size: int, dim: int = 0) -> torch.Tensor:
         return x
     widths = [0, 0] * (x.ndim - dim - 1) + [0, pad]
     return F.pad(x, widths)
+
+
+def tree_zeros_like(params: dict[str, torch.Tensor],
+                    dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """Zeros shaped like every tensor of a parameter dict (in ``dtype`` when
+    given), on the tensors' devices."""
+    return {n: torch.zeros_like(p, dtype=dtype or p.dtype) for n, p in params.items()}

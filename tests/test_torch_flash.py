@@ -12,6 +12,7 @@ the card holds the kernel to, and ``_build``'s library names are checked to
 follow every header a kernel includes.
 """
 import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -168,8 +169,61 @@ def _p_pieces(p: torch.Tensor, n: int) -> list:
     return [hi] if n == 1 else [hi, (p - hi).bfloat16().float()]
 
 
-def _wgmma_arithmetic(q, k, v, *, causal, window, cap, pieces=3):
-    """The kernel's arithmetic in float32: per tile of keys, float32 scores;
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 |x|) as float64, and -1e9 where x is 0."""
+    return torch.where(x != 0, (torch.frexp(x).exponent - 1).double(), torch.full_like(x, -1e9))
+
+
+def _to_f32_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _wgmma_k16(c, a, b):
+    """One m64nNk16 bf16 wgmma as the card sums it, fitted bit for bit to
+    scripts/flash_qk_probe.py's output on an H100: the 16 products a_i b_i
+    and the accumulator c are aligned to E = max(e(a_i) + e(b_i), e(c))
+    (e: the exponent, floor(log2 |x|)), each cut toward zero to a multiple
+    of 2^(E - 25), summed exactly, and the sum cut toward zero to float32.
+    a: (..., 1, 16), b: (..., N, 16), c: (..., N) float32 or None (a fresh
+    accumulator) -> (..., N) float32."""
+    a, b = a.double(), b.double()
+    e = (_exponent(a) + _exponent(b)).amax(-1)
+    if c is not None:
+        e = torch.maximum(e, _exponent(c.double()))
+    grid = torch.exp2(e.clamp_min(-1000.0) - 25)
+    s = (torch.trunc(a * b / grid[..., None]) * grid[..., None]).sum(-1)
+    if c is not None:
+        s = s + torch.trunc(c.double() / grid) * grid
+    return _to_f32_toward_zero(s)
+
+
+# Q K^T chains of csrc/flash_wgmma.cuh's issue_qk: the two halves of hd
+_QK_CHAINS = 2
+
+
+def _qk_tensor_cores(q, k, chains):
+    """Q K^T of the wgmma design for q (..., T, hd), k (..., N, hd): the
+    16-column slices of hd in ``chains`` contiguous chains, each summed in
+    one tensor-core accumulator (slice j in chain j * chains // (hd/16)),
+    and the chains added in order in float32.  One chain is the design
+    before; ``_QK_CHAINS`` the kernel's."""
+    ns = q.shape[-1] // 16
+    s = None
+    for a in range(chains):
+        acc = None
+        for j in range(-(-a * ns // chains), -(-(a + 1) * ns // chains)):
+            acc = _wgmma_k16(acc, q[..., :, None, 16 * j:16 * j + 16],
+                             k[..., None, :, 16 * j:16 * j + 16])
+        s = acc if s is None else s + acc
+    return s
+
+
+def _wgmma_arithmetic(q, k, v, *, causal, window, cap, pieces=3, qk="float32"):
+    """The kernel's arithmetic in float32: per tile of keys, scores by
+    ``qk`` ("float32": a float32 product; "design": the kernel's tensor-core
+    chains at the wgmma design's head dims, else float32, "chained": one
+    chain, ``_qk_tensor_cores``; "float64": rounded once);
     m' = fl(m * c) with c = hd^-0.5 log2(e) (log2(e) after a cap);
     p = 2^fl(s * c - m'), p = 0 on a tile that leaves the row no key;
     corr = 2^(fl(m_old * c) - m'); acc = corr * acc + sum of piece @ V;
@@ -188,7 +242,13 @@ def _wgmma_arithmetic(q, k, v, *, causal, window, cap, pieces=3):
     t = torch.arange(T)[:, None]
     for k0 in range(0, S, bn):
         keys = torch.arange(k0, min(k0 + bn, S))[None, :]
-        s = qf @ kf[:, :, k0:k0 + bn].transpose(-1, -2)
+        kt = kf[:, :, k0:k0 + bn]
+        if qk == "float32" or (qk == "design" and hd not in ops.WGMMA_HEAD_DIMS):  # CUDA-core design
+            s = qf @ kt.transpose(-1, -2)
+        elif qk == "float64":
+            s = (qf.double() @ kt.double().transpose(-1, -2)).float()
+        else:
+            s = _qk_tensor_cores(qf, kt, _QK_CHAINS if qk == "design" else 1)
         if cap > 0:
             s = cap * torch.tanh(s * scale / cap)
         ok = torch.ones((T, keys.shape[1]), dtype=torch.bool)
@@ -209,12 +269,13 @@ def _wgmma_arithmetic(q, k, v, *, causal, window, cap, pieces=3):
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _values_over_one_ulp(case, pieces, seed=0) -> int:
+def _values_over_one_ulp(case, pieces, seed=0, qk="float32") -> int:
     """Values of the emulated bf16 result more than 1 bf16 ulp (floor 1e-6)
     from the plain version: chip_smoke.py's gate for the kernel."""
     causal, window, cap = case[6:]
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(case, seed))
-    got = _wgmma_arithmetic(q, k, v, causal=causal, window=window, cap=cap, pieces=pieces)
+    got = _wgmma_arithmetic(q, k, v, causal=causal, window=window, cap=cap, pieces=pieces,
+                            qk=qk)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, logit_cap=cap)
     e = torch.frexp(want.float().abs()).exponent  # |want| in [2^(e-1), 2^e)
     ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), (e - 8).clamp_min(-133))
@@ -223,7 +284,8 @@ def _values_over_one_ulp(case, pieces, seed=0) -> int:
 
 @pytest.mark.parametrize("case", CASES + [PRECISION_CASE], ids=str)
 def test_three_pieces_of_p_keep_the_kernel_within_one_bf16_ulp(case):
-    assert _values_over_one_ulp(case, pieces=3) == 0
+    # the scores summed as the card's tensor cores sum them (_wgmma_k16)
+    assert _values_over_one_ulp(case, pieces=3, qk="design") == 0
 
 
 @pytest.mark.parametrize("pieces", [1, 2])
@@ -232,6 +294,75 @@ def test_fewer_pieces_of_p_go_over_one_bf16_ulp(pieces):
     bf16, and the two-piece split P_hi + P_lo too, leave values more than one
     bf16 ulp from the plain version, where the sum of p * v cancels."""
     assert _values_over_one_ulp(PRECISION_CASE, pieces=pieces, seed=1) > 0
+
+
+# scripts/flash_qk_probe.py's output on an NVIDIA H100 80GB HBM3 (700 W): the
+# card's Q K^T of seeded bf16 q (16 rows) and k (32 rows), three times the
+# unit normal, in both orders, and rows built to show one wgmma's sum
+_PROBE = Path(__file__).parent / "data" / "wgmma_qk_probe.npz"
+
+
+def _bf16(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(bits.astype(np.int32) << 16).view(torch.float32)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_tensor_core_sum_model_matches_the_card(hd):
+    """The emulation's wgmma reproduces the card's scores bit for bit, in
+    the kernel's order (chains added on the CUDA cores) and in one chain."""
+    d = np.load(_PROBE)
+    q, k = _bf16(d[f"q_hd{hd}"]), _bf16(d[f"k_hd{hd}"])
+    assert torch.equal(_qk_tensor_cores(q, k, _QK_CHAINS), torch.from_numpy(d[f"s1_hd{hd}"]))
+    assert torch.equal(_qk_tensor_cores(q, k, 1), torch.from_numpy(d[f"s0_hd{hd}"]))
+    # 1 + fifteen products of 2^-24: the card gives 1 + 7 * 2^-23 (each term
+    # kept, the sum cut toward zero), where the exact 1 + 7.5 * 2^-23 rounds
+    # to 1 + 8 * 2^-23
+    qc, kc = _bf16(d["qc"]), _bf16(d["kc"])
+    got = _qk_tensor_cores(qc, kc, 1)
+    assert torch.equal(got, torch.from_numpy(d["crafted1"]))
+    assert got[1, 0] == 1 + 7 * 2.0 ** -23
+    assert (qc.double() @ kc.double().T)[1, 0].float() == 1 + 8 * 2.0 ** -23
+
+
+LARGE_SCORE_CASE = (1, 512, 512, 8, 2, 64, True, None, 0.0)
+
+
+def _over_one_ulp(got: torch.Tensor, want: torch.Tensor) -> int:
+    e = torch.frexp(want.float().abs()).exponent
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), (e - 8).clamp_min(-133))
+    return int(((got.float() - want.float()).abs() > ulp.clamp_min(1e-6)).sum())
+
+
+def test_large_scores_move_the_float32_plain_version_not_the_kernel():
+    """q and k three times the unit normal (|S| up to about 300): outputs
+    that cancel to 1e-5..1e-4 from terms near 1 move with the float32
+    rounding of the scores.  The kernel's arithmetic with the scores chained
+    in the tensor cores (the design before) lands over 1 bf16 ulp of the
+    float32 plain version, and so do exactly rounded scores: the plain
+    version's own float32 scores put it over 1 ulp of the float64 result.
+    Against that result the kernel's order, like the chained one, is
+    no less accurate than the plain version (chip_smoke.py's gate)."""
+    B, T, S, H, K, hd = LARGE_SCORE_CASE[:6]
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((B, T, H, hd),
+                                                                   (B, S, K, hd), (B, S, K, hd)))
+    q, k, v = torch.from_numpy(3 * q).bfloat16(), torch.from_numpy(3 * k).bfloat16(), \
+        torch.from_numpy(v).bfloat16()
+    plain = ref.flash_attention_ref(q, k, v, causal=True)
+    G = H // K
+    s = (q.double().permute(0, 2, 1, 3) @ k.double().repeat_interleave(G, 2).permute(0, 2, 3, 1))
+    s = (s * hd ** -0.5).masked_fill(~torch.ones(T, S, dtype=torch.bool).tril(), -torch.inf)
+    exact = (torch.softmax(s, -1) @ v.double().repeat_interleave(G, 2).permute(0, 2, 1, 3))
+    exact = exact.permute(0, 2, 1, 3)
+    runs = {qk: _wgmma_arithmetic(q, k, v, causal=True, window=None, cap=0.0, qk=qk)
+            for qk in ("design", "chained", "float64")}
+    assert _over_one_ulp(runs["chained"], plain) > 0
+    assert _over_one_ulp(runs["float64"], plain) > 0
+    n_plain = _over_one_ulp(plain, exact)
+    assert n_plain > 0
+    assert _over_one_ulp(runs["float64"], exact) == 0
+    for qk in ("design", "chained"):
+        assert _over_one_ulp(runs[qk], exact) <= n_plain, qk
 
 
 @pytest.mark.parametrize("hd", ops.FLASH_HEAD_DIMS)

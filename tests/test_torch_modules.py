@@ -176,8 +176,11 @@ def test_server_update_matches():
     ts = tapply(ts, convert.params_from_numpy(delta, device="cpu"))
     for n in np_params:
         assert np.array_equal(ts.params[n].numpy(), np.asarray(js.params[n])), n
-    with pytest.raises(NotImplementedError):
-        tserver.make_server("fedadam", ts.params)
+    # a name the reference does not know is refused as the reference refuses it
+    with pytest.raises(ValueError, match="unknown server algorithm"):
+        jserver.make_server("fedsgd", js.params)
+    with pytest.raises(ValueError, match="unknown server algorithm"):
+        tserver.make_server("fedsgd", ts.params)
 
 
 def test_round_flops_counter_against_xla_cost_analysis():
@@ -274,8 +277,17 @@ def test_pipeline_records_and_mean_row_match(name):
 
 
 def test_pipeline_refuses_unported_topk():
-    with pytest.raises(NotImplementedError):
-        tpipe.build_pipeline(tapi.PrivacyConfig(topk_density=0.05))
+    """Top-k is ported: it comes first in every composition, as in the
+    reference, and a density outside (0, 1] is refused as there."""
+    for kw in (dict(topk_density=0.05), dict(topk_density=0.05, secure_agg=True),
+               dict(topk_density=0.05, dp=(1.0, 0.8))):
+        dp = kw.pop("dp", None)
+        tp = tpipe.build_pipeline(tapi.PrivacyConfig(**kw, dp=tdp.DPConfig(*dp) if dp else None))
+        jp = jpipe.build_pipeline(japi.PrivacyConfig(**kw, dp=jdp.DPConfig(*dp) if dp else None))
+        assert tp.describe() == jp.describe() and tp.describe()[0] == "topk"
+        assert tp.weighting == jp.weighting
+    with pytest.raises(ValueError, match="density"):
+        tpipe.TopKStage(1.5)
 
 
 def test_spent_epsilon_matches():
