@@ -28,7 +28,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                hubert-xlarge's (1, 4096, 16 / 16, 80, bidirectional) layer
                shapes; where scores are large (q and k three times the unit
                normal) the wgmma design is gated against a float64
-               evaluation, beside one head's Q K^T from the design alone
+               evaluation
   4. agree     small federations (ResNet widths (8, 16)) on the card and on
                the CPU from the same draws: same cohorts, close losses; for
                gossip, close node rows
@@ -625,28 +625,30 @@ def _over_one_ulp(torch, got, want) -> tuple[int, float]:
     return int((ratio > 1).sum()), ratio.max().item()
 
 
-def _qk_scores(torch, lib, q, k, order: int):
-    """(T, S) float32 Q K^T of the wgmma design alone for q (T, hd), k (S,
-    hd) bf16: order 1 as ``flash_attention`` sums the 16-column slices of hd
-    (each half of hd chained in the tensor cores, the halves added on the
-    CUDA cores), order 0 all chained in one tensor-core accumulator."""
-    q4, k4 = q[None, :, None], k[None, :, None]
-    out = torch.empty((q.shape[0], k.shape[0]), device="cuda")
-    err = lib.rt_flash_wgmma_scores(q4.data_ptr(), k4.data_ptr(), out.data_ptr(), q.shape[0],
-                                    k.shape[0], q.shape[1], *q4.stride()[:3], *k4.stride()[:3],
-                                    order, torch.cuda.current_stream().cuda_stream)
-    assert err == 0, f"rt_flash_wgmma_scores: error {err}"
-    torch.cuda.synchronize()
-    return out
-
-
 # (B, T, H, K, hd) of the large-score gate: qwen2-0.5b's heads at the
 # prefill's shape, and the tensor-core design's other head dims
 LARGE_SCORE_CASES = [(4, 2048, 14, 2, 64), (2, 2048, 16, 8, 128),
                      (1, 2048, 16, 16, 256)]
+# The most values over 1 bf16 ulp of the float64 result that the wgmma design
+# may have on each case's inputs: between the counts with Q K^T summed in two
+# chains, as the design sums it (21, 69, 82), and in one tensor-core chain
+# (30, 118, 232), both read by scripts/flash_compare.py on these inputs
+# (PERF.md §6), so that one chain fails the gate.  hd 64 has the least room.
+LARGE_SCORE_MAX_OVER = {64: 25, 128: 90, 256: 150}
 
 
-def _attention_f64(torch, q, k, v):
+def large_score_inputs(torch, case):
+    """q and k three times the unit normal, v the unit normal, bf16, from a
+    seed of the case's own, so every checkout sees the same inputs."""
+    B, T, H, K, hd = case
+    gen = torch.Generator(device="cuda").manual_seed(1000 + hd)
+    q = (torch.randn((B, T, H, hd), device="cuda", generator=gen) * 3).bfloat16()
+    k = (torch.randn((B, T, K, hd), device="cuda", generator=gen) * 3).bfloat16()
+    v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
+    return q, k, v
+
+
+def attention_f64(torch, q, k, v):
     """The plain version's causal attention evaluated in float64."""
     B, T, H, hd = q.shape
     G = H // k.shape[2]
@@ -658,60 +660,48 @@ def _attention_f64(torch, q, k, v):
     return (torch.softmax(s, -1) @ vd).permute(0, 2, 1, 3)
 
 
-def _flash_large_scores(torch, ops, ref, _build, gen) -> None:
+def _flash_large_scores(torch, ops, ref) -> None:
     """Gate: the wgmma design where scores are large (q and k three times the
-    unit normal: scaled scores up to 40-80) is at least as accurate as the
-    float32 plain version it is held to elsewhere: against the same function
-    in float64 it has no more values over 1 bf16 ulp (floor
-    ``FLASH_BF16_FLOOR``) than the float32 plain version has, and none
-    farther off than the plain version's farthest.  Those values
-    are outputs that cancel to 1e-5..1e-4 from terms near 1, where the
-    float32 rounding of the scores themselves (|S| near 300-600) moves them
-    by 1e-6..3e-6; so against the float32 plain version, whose own scores
-    round so, any other float32 evaluation, even the exactly rounded S,
-    lands a few values over 1 ulp (PERF.md §6).  Printed: those counts, the
-    CUDA-core design's (its sequential FMA sums repeat the plain version's),
-    and one head's Q K^T against float64 in the design's order (two chains, the
-    halves of hd, added on the CUDA cores) and chained in the tensor cores."""
-    lib = _build.lib("flash_attention")
-    for B, T, H, K, hd in LARGE_SCORE_CASES:
-        q = (torch.randn((B, T, H, hd), device="cuda", generator=gen) * 3).bfloat16()
-        k = (torch.randn((B, T, K, hd), device="cuda", generator=gen) * 3).bfloat16()
-        v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
+    unit normal: scaled scores up to 40-80), against the same function in
+    float64: at most ``LARGE_SCORE_MAX_OVER`` values over 1 bf16 ulp (floor
+    ``FLASH_BF16_FLOOR``), and no more, and none farther off, than the
+    float32 plain version has.  Those values are outputs that cancel to
+    1e-5..1e-4 from terms near 1, where the float32 rounding of the scores
+    themselves (|S| near 300-600) moves them by 1e-6..3e-6; so against the
+    float32 plain version, whose own scores round so, any other float32
+    evaluation, even the exactly rounded S, lands a few values over 1 ulp
+    (PERF.md §6).  Printed beside: the count against the float32 plain
+    version, and the CUDA-core design's counts (its sequential FMA sums
+    repeat the plain version's)."""
+    for case in LARGE_SCORE_CASES:
+        hd = case[4]
+        q, k, v = large_score_inputs(torch, case)
         want = ref.flash_attention_ref(q, k, v, causal=True)
-        exact = _attention_f64(torch, q, k, v)
+        exact = attention_f64(torch, q, k, v)
         ops.reset_launches()
         wgmma = ops.flash_attention(q, k, v, causal=True)
         assert ops.flash_designs["wgmma"] == 1, ops.flash_designs
         core = ops.flash_attention(q.float(), k.float(), v.float(), causal=True).bfloat16()
         counts = {name: (_over_one_ulp(torch, got, want), _over_one_ulp(torch, got, exact))
                   for name, got in (("wgmma", wgmma), ("cuda_core", core), ("plain", want))}
-        del exact, core
-        q0, k0 = q[0, :, 0].contiguous(), k[0, :, 0].contiguous()
-        s64 = q0.double() @ k0.double().T
-        errs = []
-        for order in (1, 0):
-            d = _qk_scores(torch, lib, q0, k0, order).double() - s64
-            errs.append(f"{'design' if order else 'chained'} max {d.abs().max().item():.3e} "
-                        f"mean {d.mean().item():+.3e}")
-        d = (q0.float() @ k0.float().T).double() - s64
-        errs.append(f"float32 matmul max {d.abs().max().item():.3e} mean {d.mean().item():+.3e}")
         (n32, r32), (n64, r64) = counts["wgmma"]
         (c32, cr32), (c64, cr64) = counts["cuda_core"]
         _, (p64, pr64) = counts["plain"]
-        print(f"[kernels] flash_attention {(B, T, H, K, hd)} bf16 causal, q and k x3, of "
+        limit = LARGE_SCORE_MAX_OVER[hd]
+        print(f"[kernels] flash_attention {case} bf16 causal, q and k x3, of "
               f"{want.numel()} values over 1 bf16 ulp: wgmma design {n64} of the float64 result "
-              f"(max {r64:.2f} ulp; gate: at most the float32 plain version's {p64}, max {pr64:.2f} "
-              f"ulp) and {n32} of the float32 plain result (max {r32:.2f} ulp); cuda_core design "
-              f"{c64} (max {cr64:.2f}) and {c32} (max {cr32:.2f}); one head's Q K^T (|S| max "
-              f"{s64.abs().max().item():.1f}) against float64: " + "; ".join(errs))
-        assert n64 <= p64 and r64 <= pr64, \
-            f"flash_attention large scores hd {hd}: {n64} values (max {r64}) > {p64} ({pr64})"
-        del q, k, v, want, wgmma
+              f"(max {r64:.2f} ulp; gate: at most {limit}, and at most the float32 plain "
+              f"version's {p64}, max {pr64:.2f} ulp) and {n32} of the float32 plain result "
+              f"(max {r32:.2f} ulp); cuda_core design {c64} (max {cr64:.2f}) and {c32} "
+              f"(max {cr32:.2f})")
+        assert n64 <= min(limit, p64) and r64 <= pr64, \
+            f"flash_attention large scores hd {hd}: {n64} values (max {r64}) > " \
+            f"{min(limit, p64)} ({pr64})"
+        del q, k, v, want, exact, wgmma, core
         torch.cuda.empty_cache()
 
 
-def flash_kernel_phase(torch, ops, ref, _build) -> dict:
+def flash_kernel_phase(torch, ops, ref) -> dict:
     """``flash_attention`` against its plain version, and its times."""
     import torch.nn.functional as F
 
@@ -749,7 +739,7 @@ def flash_kernel_phase(torch, ops, ref, _build) -> dict:
     err = _flash_check(torch, ops, ref, case, torch.bfloat16, gen)
     print(f"[kernels] flash_attention {case[:6]} bf16 causal, the prefill's shape: "
           f"max_abs_err {err:.3e} (<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR})")
-    _flash_large_scores(torch, ops, ref, _build, gen)
+    _flash_large_scores(torch, ops, ref)
     torch.cuda.empty_cache()
     result = {}
     for label, B, T, H, K, hd, causal in FLASH_TIMED:
@@ -966,9 +956,9 @@ def _flash_label(name: str) -> str:
     wg = re.search(r"flash_wgmma_kernelILi(\d+)E", name)
     if wg:
         return f"wgmma bf16 hd={wg.group(1)}"
-    probe = re.search(r"flash_wgmma_scores_kernelILi(\d+)ELi(\d)E", name)
+    probe = re.search(r"flash_wgmma_scores_kernelILi(\d+)E", name)
     if probe:
-        return f"wgmma Q K^T probe hd={probe.group(1)} order {probe.group(2)}"
+        return f"wgmma Q K^T probe hd={probe.group(1)}"
     core = re.search(r"flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
     return f"cuda_core {'f32' if core.group(1) == 'f' else 'bf16'} hd={core.group(2)}"
 
@@ -1034,7 +1024,7 @@ def main() -> int:
     print(card.stdout.strip().splitlines()[0])
 
     results = kernel_phase(torch, ops, ref)
-    results["flash_attention"] = flash_kernel_phase(torch, ops, ref, _build)
+    results["flash_attention"] = flash_kernel_phase(torch, ops, ref)
     agree_phase(torch)
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")

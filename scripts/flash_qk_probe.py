@@ -5,20 +5,19 @@
 
 Runs the design's Q K^T alone (``rt_flash_wgmma_scores``: the consumers'
 TMA loads and wgmmas, no softmax) over seeded bf16 q and k of one head at hd
-64, 128 and 256, in both orders of summing the 16-column slices of hd:
-
-  order 0  every slice chained into one tensor-core accumulator
-  order 1  each half of hd chained in an accumulator of its own, the two
-           added on the CUDA cores (the order ``flash_attention`` uses)
-
-and once per slice alone (q zero outside the slice).  The inputs are
-q and k three times the unit normal (the scores of ``chip_smoke.py``'s
-large-score gate) and rows built to show how one wgmma sums: a product of 1
-plus fifteen products of 2^-(23+e), and a product of 1 plus one small
-negative product.  It prints each order's error against the float64 product
-and, for comparison, the error of the float32 product on the CUDA cores
-(TF32 off), and saves every array to ``--out`` for fitting the CPU
-emulation in ``tests/test_torch_flash.py``.
+64, 128 and 256, summed as ``flash_attention`` sums the 16-column slices of
+hd (each half of hd chained in a tensor-core accumulator of its own, the two
+added on the CUDA cores), and once per slice alone (q zero outside the
+slice).  The inputs are q and k three times the unit normal (the scores of
+``chip_smoke.py``'s large-score gate) and rows built to show how one wgmma
+sums: a product of 1 plus fifteen products of 2^-(23+e), and a product of 1
+plus one small negative product.  It prints the error against the float64
+product and, for comparison, the error of the float32 product on the CUDA
+cores (TF32 off), and saves every array to ``--out`` for fitting the CPU
+emulation in ``tests/test_torch_flash.py``.  (Arrays named ``s1_*`` and
+``crafted1`` are the design's order; ``tests/data/wgmma_qk_probe.npz`` also
+keeps ``s0_*`` and ``crafted0``, the card's scores with every slice chained
+in one accumulator, the order the design had before.)
 """
 from __future__ import annotations
 
@@ -30,13 +29,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = S = 256
 
 
-def scores(torch, lib, q, k, order):
+def scores(torch, lib, q, k):
     """(T, S) float32 Q K^T of the kernel for q (T, hd), k (S, hd) bf16."""
     q4, k4 = q[None, :, None], k[None, :, None]
     out = torch.full((q.shape[0], k.shape[0]), float("nan"), device="cuda")
     err = lib.rt_flash_wgmma_scores(q4.data_ptr(), k4.data_ptr(), out.data_ptr(), q.shape[0],
                                     k.shape[0], q.shape[1], *q4.stride()[:3], *k4.stride()[:3],
-                                    order, torch.cuda.current_stream().cuda_stream)
+                                    torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"rt_flash_wgmma_scores: error {err}")
     torch.cuda.synchronize()
@@ -82,12 +81,11 @@ def main() -> int:
         exact = q.double() @ k.double().T
         core = (q.float() @ k.float().T).double()
         line = [f"[probe] hd={hd} q, k x3: |S| max {exact.abs().max().item():.2f}"]
-        for order in (0, 1):
-            s = scores(torch, lib, q, k, order)
-            d = s.double() - exact
-            saved[f"s{order}_hd{hd}"] = s.cpu().numpy()
-            line.append(f"order {order}: max |err| {d.abs().max().item():.4e} "
-                        f"mean err {d.mean().item():+.4e}")
+        s = scores(torch, lib, q, k)
+        d = s.double() - exact
+        saved[f"s1_hd{hd}"] = s.cpu().numpy()
+        line.append(f"design: max |err| {d.abs().max().item():.4e} "
+                    f"mean err {d.mean().item():+.4e}")
         d = core - exact
         line.append(f"CUDA-core float32: max |err| {d.abs().max().item():.4e} "
                     f"mean err {d.mean().item():+.4e}")
@@ -95,19 +93,18 @@ def main() -> int:
         for kk in range(hd // 16):
             qs = torch.zeros_like(q)
             qs[:, 16 * kk:16 * kk + 16] = q[:, 16 * kk:16 * kk + 16]
-            saved[f"slice{kk}_hd{hd}"] = scores(torch, lib, qs, k, 1).cpu().numpy()
+            saved[f"slice{kk}_hd{hd}"] = scores(torch, lib, qs, k).cpu().numpy()
         saved[f"q_hd{hd}"] = q.float().cpu().numpy()
         saved[f"k_hd{hd}"] = k.float().cpu().numpy()
         qc, kc = (x.cuda() for x in crafted(torch, hd))
-        for order in (0, 1):
-            s = scores(torch, lib, qc, kc, order)
-            saved[f"crafted{order}_hd{hd}"] = s.cpu().numpy()
-            if hd == 64:
-                got = s[1:25, 0].double().cpu()
-                want = (qc.double() @ kc.double().T)[1:25, 0].cpu()
-                print(f"[probe] crafted rows, order {order}: (got - 1) / 2^-23 "
-                      + " ".join(f"{v:+.3f}" for v in ((got - 1) * 2 ** 23).tolist())
-                      + " | exact " + " ".join(f"{v:+.3f}" for v in ((want - 1) * 2 ** 23).tolist()))
+        s = scores(torch, lib, qc, kc)
+        saved[f"crafted1_hd{hd}"] = s.cpu().numpy()
+        if hd == 64:
+            got = s[1:25, 0].double().cpu()
+            want = (qc.double() @ kc.double().T)[1:25, 0].cpu()
+            print("[probe] crafted rows: (got - 1) / 2^-23 "
+                  + " ".join(f"{v:+.3f}" for v in ((got - 1) * 2 ** 23).tolist())
+                  + " | exact " + " ".join(f"{v:+.3f}" for v in ((want - 1) * 2 ** 23).tolist()))
         saved[f"qc_hd{hd}"] = qc.float().cpu().numpy()
         saved[f"kc_hd{hd}"] = kc.float().cpu().numpy()
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

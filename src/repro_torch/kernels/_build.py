@@ -40,7 +40,7 @@ _SIGNATURES = {
         (_i, (_p, _p, _p, _p, *(_i,) * 6, *(_ll,) * 9, _i, _i, _f, _f, _i, _i, _p)),
     ("flash_attention", "rt_flash_wgmma_smem"): (_i, (_i,)),
     ("flash_attention", "rt_flash_wgmma_scores"):
-        (_i, (_p, _p, _p, _i, _i, _i, *(_ll,) * 6, _i, _p)),
+        (_i, (_p, _p, _p, _i, _i, _i, *(_ll,) * 6, _p)),
 }
 KERNELS = ("staleness_agg", "masked_agg", "clip_quant_mask", "gossip_mix", "flash_attention")
 

@@ -337,23 +337,18 @@ RT_EXPORT int rt_flash_wgmma_smem(int hd) {
 }
 
 // Q K^T of the tensor-core design alone (flash_wgmma_scores_kernel): q (1, T,
-// 1, hd) and k (1, S, 1, hd) bf16 -> s_out (T, S) float32; order 1 sums the
-// slices of hd as flash_attention does (two chains), order 0 chains them
-// all in the tensor cores.  Returns as rt_flash_attention.
+// 1, hd) and k (1, S, 1, hd) bf16 -> s_out (T, S) float32, the slices of hd
+// summed as flash_attention sums them.  Returns as rt_flash_attention.
 RT_EXPORT int rt_flash_wgmma_scores(const void* q, const void* k, float* s_out, int T, int S,
                                     int hd, long long qs0, long long qs1, long long qs2,
-                                    long long ks0, long long ks1, long long ks2, int order,
-                                    void* stream) {
+                                    long long ks0, long long ks1, long long ks2, void* stream) {
   const long long qs[3] = {qs0, qs1, qs2}, ks[3] = {ks0, ks1, ks2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using flash_wgmma::launch_scores;
-  switch (hd * 2 + (order != 0)) {
-    case 128: return launch_scores<64, 0>(q, k, s_out, T, S, qs, ks, s);
-    case 129: return launch_scores<64, 1>(q, k, s_out, T, S, qs, ks, s);
-    case 256: return launch_scores<128, 0>(q, k, s_out, T, S, qs, ks, s);
-    case 257: return launch_scores<128, 1>(q, k, s_out, T, S, qs, ks, s);
-    case 512: return launch_scores<256, 0>(q, k, s_out, T, S, qs, ks, s);
-    case 513: return launch_scores<256, 1>(q, k, s_out, T, S, qs, ks, s);
+  switch (hd) {
+    case 64: return launch_scores<64>(q, k, s_out, T, S, qs, ks, s);
+    case 128: return launch_scores<128>(q, k, s_out, T, S, qs, ks, s);
+    case 256: return launch_scores<256>(q, k, s_out, T, S, qs, ks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

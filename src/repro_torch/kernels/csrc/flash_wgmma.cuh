@@ -182,20 +182,6 @@ __device__ __forceinline__ void finish_qk(float (&sc)[BN / 2], float (&st)[BN / 
   for (int i = 0; i < BN / 2; ++i) sc[i] = __fadd_rn(sc[i], st[i]);
 }
 
-// The order before the chains, kept for chip_smoke.py's look at the scores
-// (flash_wgmma_scores_kernel): every slice chained into sc in the tensor
-// cores (scale-d 1 after the first)
-template <int HD, int BN>
-__device__ __forceinline__ void issue_qk_chained(float (&sc)[BN / 2], uint32_t q_wg,
-                                                 uint32_t k_tile) {
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) qk_slice<HD, BN>(sc, q_wg, k_tile, kk, kk > 0);
-  wgmma_commit();
-}
-
 // O = corr * O + P V for one tile, 64 columns of hd at a time: each
 // column block's P V goes into ot in the tensor cores (P's three pieces
 // from registers, V read MN-major: 16 keys of 128-byte rows per slice),
@@ -455,12 +441,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
   }
 }
 
-// Q K^T alone, for chip_smoke.py's look at the scores' precision: one
-// 64-row query tile (blockIdx.x) against one key tile (blockIdx.y) of batch
-// 0 and head 0, loaded and summed as the consumers do (ORDER 1) or with
-// every slice chained in the tensor cores (ORDER 0); written to s_out, a
-// (T, S) float32 matrix.
-template <int HD, int ORDER>
+// Q K^T alone, for scripts/flash_qk_probe.py's look at the scores'
+// precision: one 64-row query tile (blockIdx.x) against one key tile
+// (blockIdx.y) of batch 0 and head 0, loaded and summed as the consumers do;
+// written to s_out, a (T, S) float32 matrix.
+template <int HD>
 __global__ void __launch_bounds__(128, 1)
 flash_wgmma_scores_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk, float* s_out, int T, int S) {
@@ -487,16 +472,9 @@ flash_wgmma_scores_kernel(const __grid_constant__ CUtensorMap tq,
   float sc[BN / 2], st[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sc[i] = st[i] = 0.f;
-  if constexpr (ORDER == 0) {
-    issue_qk_chained<HD, BN>(sc, sq, sk);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) fence_reg(sc[i]);
-  } else {
-    issue_qk<HD, BN>(sc, st, sq, sk);
-    wgmma_wait<0>();
-    finish_qk<BN>(sc, st);
-  }
+  issue_qk<HD, BN>(sc, st, sq, sk);
+  wgmma_wait<0>();
+  finish_qk<BN>(sc, st);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) {
@@ -580,7 +558,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T,
 
 // flash_wgmma_scores_kernel over q (1, T, 1, HD) and k (1, S, 1, HD) into s_out
 // (T, S); T a multiple of 64 and S of the key tile.  Returns as launch().
-template <int HD, int ORDER>
+template <int HD>
 int launch_scores(const void* q, const void* k, float* s_out, int T, int S, const long long* qs,
                   const long long* ks, cudaStream_t stream) {
   using C = Tile<HD>;
@@ -593,10 +571,10 @@ int launch_scores(const void* q, const void* k, float* s_out, int T, int S, cons
   r = encode(fn, &tk, k, HD, 1, S, 1, ks[0], ks[1], ks[2], C::BN);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int smem = C::Q_BYTES + C::KV_BYTES + 8 + 1024;
-  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_scores_kernel<HD, ORDER>,
+  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_scores_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_wgmma_scores_kernel<HD, ORDER>
+  flash_wgmma_scores_kernel<HD>
       <<<dim3(T / 64, S / C::BN), 128, smem, stream>>>(tq, tk, s_out, T, S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -298,7 +298,8 @@ def test_fewer_pieces_of_p_go_over_one_bf16_ulp(pieces):
 
 # scripts/flash_qk_probe.py's output on an NVIDIA H100 80GB HBM3 (700 W): the
 # card's Q K^T of seeded bf16 q (16 rows) and k (32 rows), three times the
-# unit normal, in both orders, and rows built to show one wgmma's sum
+# unit normal, in one chain (the order the design had before) and in the
+# design's two chains, and rows built to show one wgmma's sum
 _PROBE = Path(__file__).parent / "data" / "wgmma_qk_probe.npz"
 
 

@@ -278,7 +278,9 @@ def test_pipeline_records_and_mean_row_match(name):
 
 def test_pipeline_refuses_unported_topk():
     """Top-k is ported: it comes first in every composition, as in the
-    reference, and a density outside (0, 1] is refused as there."""
+    reference, and a density outside (0, 1] is refused as there.  (The name
+    is kept from when the port refused top-k, so that runs of the suite
+    stay comparable test by test.)"""
     for kw in (dict(topk_density=0.05), dict(topk_density=0.05, secure_agg=True),
                dict(topk_density=0.05, dp=(1.0, 0.8))):
         dp = kw.pop("dp", None)
