@@ -19,16 +19,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
                qwen2-0.5b's layer shape (1, 4096, 14 / 2 heads, 64) in bf16
                and at the eight cases of the reference's kernel tests in
                float32 and bf16, then bf16 cases of its tensor-core (wgmma)
-               design at hd 64, 128 and 256 (ragged, windowed, capped,
-               bidirectional MQA, more keys than queries, rows with no
-               key), timed against its plain version and
+               design at hd 64, 80, 128 and 256 (ragged, windowed, capped,
+               bidirectional MHA and MQA, more keys than queries, rows with
+               no key), timed against its plain version and
                ``scaled_dot_product_attention`` at 4096 and (kernel and
                library only) 32768 positions, and at qwen3-0.6b's
                (1, 4096, 16 / 8, 128), gemma's (1, 4096, 16 / 16, 256) and
                hubert-xlarge's (1, 4096, 16 / 16, 80, bidirectional) layer
                shapes; where scores are large (q and k three times the unit
                normal) the wgmma design is gated against a float64
-               evaluation
+               evaluation at each of its head dims
   4. agree     small federations (ResNet widths (8, 16)) on the card and on
                the CPU from the same draws: same cohorts, close losses; for
                gossip, close node rows
@@ -56,6 +56,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                through ``make_decode_step``, 16 greedy tokens, the prompt's
                decode logits held against its flash prefill; rates, peak
                memory, and one flash prefill under ``torch.profiler``
+  8. hubert    hubert-xlarge's encoder at full width and depth (945,789,440
+               parameters, bf16, random weights from a seed) over 4 clips of
+               2048 frames of 512 dims with a mask at ``cfg.mask_prob``:
+               ``forward(..., use_flash=True)`` (counters zeroed around it:
+               48 ``flash_attention`` launches at hd 80, all on the wgmma
+               design) held against the plain-attention forward
+               (``make_prefill_step``); frames/s, peak memory, and one flash
+               forward under ``torch.profiler``
 
 It then prints the ``kernels`` JSON line and, last, the result line.  It
 imports nothing of JAX or of the JAX package ``repro``.
@@ -592,6 +600,10 @@ WGMMA_CASES = [
     (1, 100, 100, 4, 4, 64, True, None, 0.0),      # ragged hd 64
     (1, 200, 200, 16, 16, 256, True, None, 0.0),   # hd 256, ragged
     (2, 256, 256, 4, 2, 256, True, 64, 30.0),      # hd 256, window and cap
+    (1, 256, 256, 16, 16, 80, False, None, 0.0),   # hd 80: hubert's bidirectional MHA
+    (1, 200, 200, 16, 8, 80, True, None, 0.0),     # hd 80, causal GQA, ragged T = S
+    (2, 256, 256, 4, 2, 80, True, 64, 30.0),       # hd 80, window and cap
+    (1, 64, 16, 4, 2, 80, True, 8, 0.0),           # hd 80, T > S: rows with no key
 ]
 # (label, B, T, H, K, hd, causal): shapes timed against SDPA; the first is the main one
 FLASH_TIMED = [("", 1, 4096, QWEN2_HEADS, QWEN2_KV, QWEN2_HD, True),
@@ -626,15 +638,18 @@ def _over_one_ulp(torch, got, want) -> tuple[int, float]:
 
 
 # (B, T, H, K, hd) of the large-score gate: qwen2-0.5b's heads at the
-# prefill's shape, and the tensor-core design's other head dims
+# prefill's shape, and the tensor-core design's other head dims (hubert's
+# heads at hd 80)
 LARGE_SCORE_CASES = [(4, 2048, 14, 2, 64), (2, 2048, 16, 8, 128),
-                     (1, 2048, 16, 16, 256)]
+                     (1, 2048, 16, 16, 256), (2, 2048, 16, 16, 80)]
 # The most values over 1 bf16 ulp of the float64 result that the wgmma design
 # may have on each case's inputs: between the counts with Q K^T summed in two
-# chains, as the design sums it (21, 69, 82), and in one tensor-core chain
-# (30, 118, 232), both read by scripts/flash_compare.py on these inputs
-# (PERF.md §6), so that one chain fails the gate.  hd 64 has the least room.
-LARGE_SCORE_MAX_OVER = {64: 25, 128: 90, 256: 150}
+# chains, as the design sums it (21, 18, 69, 82 at hd 64, 80, 128, 256), and
+# in one tensor-core chain (30, 20, 118, 232), both read by
+# scripts/flash_compare.py on these inputs (PERF.md §6), so that one chain
+# fails the gate.  hd 80, whose chains are 2 and 3 slices against one of 5,
+# has the least room.
+LARGE_SCORE_MAX_OVER = {64: 25, 80: 19, 128: 90, 256: 150}
 
 
 def large_score_inputs(torch, case):
@@ -721,7 +736,8 @@ def flash_kernel_phase(torch, ops, ref) -> dict:
     errs = [_flash_wgmma_case(torch, ops, ref, case, gen) for case in WGMMA_CASES]
     print(f"[kernels] flash_attention bf16 on {len(WGMMA_CASES)} cases of the wgmma design "
           f"(hd 128: ragged GQA, window, cap, MQA, S > T, T > S with empty rows as zeros; "
-          f"hd 64 ragged; hd 256): max_abs_err {max(errs):.3e} (<= 1 bf16 ulp of the plain "
+          f"hd 64 ragged; hd 256; hd 80: MHA, ragged GQA, window and cap, empty rows): "
+          f"max_abs_err {max(errs):.3e} (<= 1 bf16 ulp of the plain "
           f"result, floor {FLASH_BF16_FLOOR}); per case " + " ".join(f"{e:.2e}" for e in errs))
     # the tensor maps read strided views: q, k, v of one fused projection, and
     # transposes of (B, heads, T, hd) tensors
@@ -798,7 +814,7 @@ def _logit_agreement(a, b) -> tuple[float, float, float]:
     return err, err / b.abs().max().item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
 
-def _hold_layer_inputs(torch, ops, ref, prefill) -> int:
+def _hold_layer_inputs(torch, ops, ref, prefill, tag: str = "llm") -> int:
     """Run ``prefill`` with every ``flash_attention`` call's q, k and v kept,
     then hold the kernel against its plain version on each layer's inputs;
     returns the number of calls."""
@@ -816,11 +832,68 @@ def _hold_layer_inputs(torch, ops, ref, prefill) -> int:
     errs = [_flash_hold(torch, ops, ref, q, k, v, f"layer {i}", **kw)
             for i, (q, k, v, kw) in enumerate(calls)]
     q, k, _, kw = calls[0]
-    print(f"[llm] flash_attention on the prefill's own inputs, {len(calls)} layers of q "
+    print(f"[{tag}] flash_attention on the forward's own inputs, {len(calls)} layers of q "
           f"{tuple(q.shape)} k/v {tuple(k.shape)} {q.dtype} {kw}: max_abs_err {max(errs):.3e} "
           f"(<= 1 bf16 ulp of the plain result, floor {FLASH_BF16_FLOOR}); per layer max "
           + " ".join(f"{e:.1e}" for e in errs))
     return len(calls)
+
+
+class _Forward:
+    """A path's full-sequence forward on the card, held and timed as the
+    ``[llm]`` and ``[hubert]`` phases do: ``run(use_flash)`` -> (logits,
+    seconds), synchronized; ``check(tag, shape)`` holds each layer's
+    ``flash_attention`` against its plain version on its own q, k, v, then
+    runs one flash forward with the counters zeroed around it (one launch a
+    layer, all on the wgmma design, no other kernel; finite logits of
+    ``shape``) and the plain-attention forward (``make_prefill_step``), and
+    asserts that their logits agree."""
+
+    def __init__(self, torch, ops, ref, cfg, params, batch):
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as tf
+
+        self.torch, self.ops, self.ref, self.cfg = torch, ops, ref, cfg
+        self._tf, self._plain = tf, serve.make_prefill_step(cfg)
+        self.params, self.batch = params, batch
+
+    def _timed(self, fn):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run(self, use_flash: bool):
+        return self._timed(lambda: self._tf.forward(self.params, self.cfg, self.batch,
+                                                    use_flash=use_flash)[0])
+
+    def check(self, tag: str, shape: tuple) -> dict:
+        torch, ops, cfg = self.torch, self.ops, self.cfg
+        # first use (cuBLAS handles and workspaces), each layer's attention checked
+        assert _hold_layer_inputs(torch, ops, self.ref, lambda: self.run(True), tag) == \
+            cfg.n_layers
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        flash, t_flash = self.run(True)
+        counts, designs = dict(ops.launches), dict(ops.flash_designs)
+        peak = torch.cuda.max_memory_allocated()
+        assert counts["flash_attention"] == cfg.n_layers, counts
+        # every layer's attention on the tensor-core design
+        assert designs == {"wgmma": cfg.n_layers, "cuda_core": 0}, designs
+        assert all(v == 0 for k, v in counts.items() if k != "flash_attention"), counts
+        assert flash.shape == shape and bool(torch.isfinite(flash).all())
+        plain, t_plain = self._timed(lambda: self._plain(self.params, self.batch))
+        err, rel, agree = _logit_agreement(flash, plain)
+        logits = (f"max_abs_diff={err:.4e} rel={rel:.4e} (limit {LOGIT_REL_TOL}) "
+                  f"argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN}); "
+                  f"max |logit| {plain.abs().max().item():.4f}")
+        assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE_MIN, f"[{tag}] logits: {logits}"
+        del flash, plain
+        torch.cuda.empty_cache()
+        return dict(t_flash=t_flash, t_plain=t_plain, counts=counts, designs=designs, peak=peak,
+                    logits=logits)
 
 
 def llm_phase(torch, ops, ref) -> dict:
@@ -833,51 +906,21 @@ def llm_phase(torch, ops, ref) -> dict:
     t_phase = time.perf_counter()
     cfg = base.get(LLM_ARCH)
     params = tf.init_model(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-    n = sum(t.numel() for tree in (params, params["blocks"]) for t in tree.values()
-            if isinstance(t, torch.Tensor))
+    n = _param_count(torch, params)
     assert n == LLM_PARAMS, n
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_T), device="cuda", generator=gen,
                            dtype=torch.int32)
-    batch = {"tokens": tokens}
-
-    def prefill(use_flash: bool):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, _ = tf.forward(params, cfg, batch, use_flash=use_flash)
-        torch.cuda.synchronize()
-        return logits, time.perf_counter() - t0
-
-    # first use (cuBLAS handles and workspaces), each layer's attention checked
-    assert _hold_layer_inputs(torch, ops, ref, lambda: prefill(True)) == cfg.n_layers
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    flash, t_flash = prefill(True)
-    counts, designs = dict(ops.launches), dict(ops.flash_designs)
-    peak = torch.cuda.max_memory_allocated()
-    assert counts["flash_attention"] == cfg.n_layers, counts
-    # every layer's attention on the tensor-core design
-    assert designs == {"wgmma": cfg.n_layers, "cuda_core": 0}, designs
-    assert all(v == 0 for k, v in counts.items() if k != "flash_attention"), counts
-    assert flash.shape == (PREFILL_B, PREFILL_T, cfg.vocab) and bool(torch.isfinite(flash).all())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = serve.make_prefill_step(cfg)(params, batch)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    err, rel, agree = _logit_agreement(flash, plain)
+    fwd = _Forward(torch, ops, ref, cfg, params, {"tokens": tokens})
+    r = fwd.check("llm", (PREFILL_B, PREFILL_T, cfg.vocab))
+    t_flash, t_plain, counts, designs = r["t_flash"], r["t_plain"], r["counts"], r["designs"]
     n_tok = PREFILL_B * PREFILL_T
     print(f"[llm] {LLM_ARCH}: {n:,} parameters, bf16, {cfg.n_layers} layers; prefill "
           f"{PREFILL_B} x {PREFILL_T}: flash {t_flash * 1e3:.2f} ms "
-          f"({n_tok / t_flash:.0f} tokens/s), plain attention {t_plain * 1e3:.2f} ms ({n_tok / t_plain:.0f} tokens/s); "
-          f"launches {counts}; flash designs {designs}; peak_mem_gib={peak / 2**30:.3f}")
-    print(f"[llm] flash vs plain prefill logits: max_abs_diff={err:.4e} rel={rel:.4e} "
-          f"(limit {LOGIT_REL_TOL}) argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN}); "
-          f"max |logit| {plain.abs().max().item():.4f}")
-    assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE_MIN, (rel, agree)
-    del flash, plain
-    torch.cuda.empty_cache()
+          f"({n_tok / t_flash:.0f} tokens/s), plain attention {t_plain * 1e3:.2f} ms "
+          f"({n_tok / t_plain:.0f} tokens/s); launches {counts}; flash designs {designs}; "
+          f"peak_mem_gib={r['peak'] / 2**30:.3f}")
+    print(f"[llm] flash vs plain prefill logits: {r['logits']}")
 
     # serving, as examples/serve_decode.py: the prompt through decode, then greedy
     prompt = tokens[:, :PROMPT_T].contiguous()
@@ -913,23 +956,74 @@ def llm_phase(torch, ops, ref) -> dict:
           f"(limit {LOGIT_REL_TOL}) argmax_agree={agree:.4f} (limit {ARGMAX_AGREE_MIN})")
     assert rel <= LOGIT_REL_TOL and agree >= ARGMAX_AGREE_MIN, (rel, agree)
 
-    # one flash prefill under the profiler: device time by kernel, busy share
+    _profile_forward(torch, f"flash prefill {PREFILL_B} x {PREFILL_T}", "prefill",
+                     lambda: fwd.run(True), t_flash)
+    print(f"[llm] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since the prefill's reset")
+    return counts, designs
+
+
+def _param_count(torch, params) -> int:
+    """Elements of an ``init_model`` tree: its tensors and its blocks'."""
+    return sum(t.numel() for tree in (params, params["blocks"]) for t in tree.values()
+               if isinstance(t, torch.Tensor))
+
+
+def _profile_forward(torch, what: str, short: str, run, wall: float) -> None:
+    """``run()`` (returning (output, seconds)) once under the profiler: device
+    time by kernel, and its busy share of the unprofiled ``wall``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, t_prof = prefill(True)
+        _, t_prof = run()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernel_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"[profile] one flash prefill {PREFILL_B} x {PREFILL_T}: wall_s={t_flash:.4f} "
-          f"(profiled {t_prof:.4f}) device_kernel_s={kernel_s:.4f} "
-          f"busy_share={kernel_s / t_flash:.3f} kernel_launches={sum(e.count for e in kernels)}")
+    print(f"[profile] one {what}: wall_s={wall:.4f} (profiled {t_prof:.4f}) "
+          f"device_kernel_s={kernel_s:.4f} busy_share={kernel_s / wall:.3f} "
+          f"kernel_launches={sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile]   prefill: {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
+        print(f"[profile]   {short}: {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
-    print(f"[llm] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since the prefill's reset")
-    return counts, designs
+
+
+HUBERT_ARCH = "hubert-xlarge"
+HUBERT_PARAMS = 945_789_440     # init_model's tree: 48 blocks, proj, mask_emb, embed, lm_head
+# 4 clips of 2048 frames: 41 s of speech each at HuBERT's 20 ms frame stride
+HUBERT_B, HUBERT_T = 4, 2048
+
+
+def hubert_phase(torch, ops, ref) -> tuple[dict, dict]:
+    """hubert-xlarge's encoder forward on the card; returns kernel ->
+    launches, and the flash designs, of its flash forward."""
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    cfg = base.get(HUBERT_ARCH)
+    assert cfg.resolved_head_dim == 80 and not cfg.causal
+    params = tf.init_model(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n = _param_count(torch, params)
+    assert n == HUBERT_PARAMS, n
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = torch.randn((HUBERT_B, HUBERT_T, cfg.frontend_dim), device="cuda", generator=gen)
+    mask = torch.rand((HUBERT_B, HUBERT_T), device="cuda", generator=gen) < cfg.mask_prob
+    fwd = _Forward(torch, ops, ref, cfg, params, {"frames": frames, "mask": mask})
+    r = fwd.check("hubert", (HUBERT_B, HUBERT_T, cfg.vocab))
+    t_flash, t_plain = r["t_flash"], r["t_plain"]
+    n_frames = HUBERT_B * HUBERT_T
+    print(f"[hubert] {HUBERT_ARCH}: {n:,} parameters, bf16, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, bidirectional; "
+          f"{HUBERT_B} x {HUBERT_T} frames ({int(mask.sum())} masked): flash "
+          f"{t_flash * 1e3:.2f} ms ({n_frames / t_flash:.0f} frames/s), plain attention "
+          f"{t_plain * 1e3:.2f} ms ({n_frames / t_plain:.0f} frames/s); launches {r['counts']}; "
+          f"flash designs {r['designs']}; peak_mem_gib={r['peak'] / 2**30:.3f}")
+    print(f"[hubert] flash vs plain logits: {r['logits']}")
+    _profile_forward(torch, f"flash forward {HUBERT_B} x {HUBERT_T} frames", "hubert",
+                     lambda: fwd.run(True), t_flash)
+    print(f"[hubert] phase wall {time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB since the forward's reset")
+    return r["counts"], r["designs"]
 
 
 def _ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -1029,9 +1123,14 @@ def main() -> int:
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")
     profile_phase(torch, "gossip_ring")
-    counts, designs = llm_phase(torch, ops, ref)
-    launches["flash_attention"] = counts["flash_attention"]
-    results["flash_attention"]["designs"] = designs
+    # each path's flash_attention launches, read around its own forward
+    paths = {"qwen2-0.5b prefill": llm_phase(torch, ops, ref),
+             "hubert-xlarge forward": hubert_phase(torch, ops, ref)}
+    launches["flash_attention"] = sum(c["flash_attention"] for c, _ in paths.values())
+    results["flash_attention"]["launches_by_path"] = {
+        path: c["flash_attention"] for path, (c, _) in paths.items()}
+    results["flash_attention"]["designs"] = {
+        name: sum(d[name] for _, d in paths.values()) for name in ops.flash_designs}
 
     sources = {"staleness_agg": ("src/repro_torch/kernels/csrc/staleness_agg.cu",
                                  "src/repro/kernels/staleness_agg.py:37"),

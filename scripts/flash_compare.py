@@ -7,8 +7,9 @@ For each directory named (a checkout of this repository, e.g. the parent
 commit unpacked with ``git archive``), in the order given, one process builds
 that checkout's kernels and prints:
 
-  - the kernel's time at chip_smoke.py's FLASH_TIMED shapes of the
-    tensor-core design (CUDA events, median of 20, 5 at 32,768 positions);
+  - the kernel's time at chip_smoke.py's FLASH_TIMED shapes, with the
+    design that checkout runs there (CUDA events, median of 20, 5 at 32,768
+    positions);
   - on the inputs of chip_smoke.py's large-score gate (q and k three times
     the unit normal), the count of values over 1 bf16 ulp (floor 1e-6) and
     the largest distance in ulps, of the kernel against a float64 evaluation
@@ -38,14 +39,13 @@ TAG = sys.argv[1]
 _build.build_all()
 gen = torch.Generator(device="cuda").manual_seed(99)
 for label, B, T, H, K, hd, causal in cs.FLASH_TIMED:
-    if ops.flash_design(torch.bfloat16, hd) != "wgmma":
-        continue
     q = torch.randn((B, T, H, hd), device="cuda", generator=gen).bfloat16()
     k = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
     v = torch.randn((B, T, K, hd), device="cuda", generator=gen).bfloat16()
     reps = 20 if T <= 4096 else 5
     ms = cs._time_ms(lambda: ops.flash_attention(q, k, v, causal=causal), reps=reps, warmup=1)
-    print(f"[cmp] {TAG} {label or 'main'} ({B},{T},{H}/{K},{hd}) kernel_ms={ms:.4f}", flush=True)
+    print(f"[cmp] {TAG} {label or 'main'} ({B},{T},{H}/{K},{hd}) "
+          f"{ops.flash_design(torch.bfloat16, hd)} kernel_ms={ms:.4f}", flush=True)
     del q, k, v
     torch.cuda.empty_cache()
 

@@ -5,9 +5,10 @@
 
 Runs the design's Q K^T alone (``rt_flash_wgmma_scores``: the consumers'
 TMA loads and wgmmas, no softmax) over seeded bf16 q and k of one head at hd
-64, 128 and 256, summed as ``flash_attention`` sums the 16-column slices of
-hd (each half of hd chained in a tensor-core accumulator of its own, the two
-added on the CUDA cores), and once per slice alone (q zero outside the
+64, 128, 256 and 80 (drawn in that order), summed as ``flash_attention``
+sums the 16-column slices of hd (two chains, each in a tensor-core
+accumulator of its own, the two added on the CUDA cores: the halves of hd,
+at hd 80 slices 0-1 and 2-4), and once per slice alone (q zero outside the
 slice).  The inputs are q and k three times the unit normal (the scores of
 ``chip_smoke.py``'s large-score gate) and rows built to show how one wgmma
 sums: a product of 1 plus fifteen products of 2^-(23+e), and a product of 1
@@ -75,7 +76,7 @@ def main() -> int:
     lib = _build.lib("flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(77)
     saved = {}
-    for hd in (64, 128, 256):
+    for hd in (64, 128, 256, 80):
         q = (torch.randn((T, hd), device="cuda", generator=gen) * 3).bfloat16()
         k = (torch.randn((S, hd), device="cuda", generator=gen) * 3).bfloat16()
         exact = q.double() @ k.double().T

@@ -27,11 +27,11 @@
 //
 // Two designs, chosen by (dtype, hd) before the launch (the wrapper's
 // ops.flash_design is the rule; a launch never falls back to the other):
-//  - wgmma (flash_wgmma.cuh): bf16 at hd 64, 128 and 256.  Tensor-core
+//  - wgmma (flash_wgmma.cuh): bf16 at hd 64, 80, 128 and 256.  Tensor-core
 //    products, TMA loads into an mbarrier ring, a producer warpgroup and two
 //    consumer warpgroups; its header says how it keeps the plain version's
 //    float32 precision.
-//  - CUDA core (this file): float32 inputs, and bf16 at the other head dims.
+//  - CUDA core (this file): float32 inputs, and bf16 at hd 32 and 48.
 //    Every product runs in float32 on the CUDA cores.  A block of 256
 //    threads owns 64 query rows of one (b, h); Q, a 64-key tile of K and of
 //    V, and the tile's probabilities sit in shared memory, and each block
@@ -283,7 +283,6 @@ cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t s) {
   switch (hd) {
     case 32: return launch<__nv_bfloat16, 32>(p, s);
     case 48: return launch<__nv_bfloat16, 48>(p, s);
-    case 80: return launch<__nv_bfloat16, 80>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -293,8 +292,8 @@ cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t s) {
 // Strides are in elements.  Every base pointer must be 16-byte aligned and
 // every stride a multiple of 16 bytes: rows load 16 bytes at a time, and TMA
 // requires it.  wgmma != 0 launches the tensor-core design, which takes bf16
-// at hd 64, 128 and 256 only; the CUDA-core design takes float32 at every
-// head dim and bf16 at the others.  Returns 0, a cudaError_t, or minus the
+// at hd 64, 80, 128 and 256 only; the CUDA-core design takes float32 at
+// every head dim and bf16 at hd 32 and 48.  Returns 0, a cudaError_t, or minus the
 // CUresult of a failed tensor-map encode.
 RT_EXPORT int rt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                  int B, int T, int S, int H, int K, int hd,
@@ -311,6 +310,8 @@ RT_EXPORT int rt_flash_attention(const void* q, const void* k, const void* v, vo
     const long long qs[3] = {qs0, qs1, qs2}, ks[3] = {ks0, ks1, ks2}, vs[3] = {vs0, vs1, vs2};
     switch (hd) {
       case 64: return flash_wgmma::launch<64>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
+                                              window, scale, cap, s);
+      case 80: return flash_wgmma::launch<80>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
                                               window, scale, cap, s);
       case 128: return flash_wgmma::launch<128>(q, k, v, out, B, T, S, H, K, qs, ks, vs, causal,
                                                 window, scale, cap, s);
@@ -330,6 +331,7 @@ RT_EXPORT int rt_flash_attention(const void* q, const void* k, const void* v, vo
 RT_EXPORT int rt_flash_wgmma_smem(int hd) {
   switch (hd) {
     case 64: return flash_wgmma::Tile<64>::SMEM;
+    case 80: return flash_wgmma::Tile<80>::SMEM;
     case 128: return flash_wgmma::Tile<128>::SMEM;
     case 256: return flash_wgmma::Tile<256>::SMEM;
     default: return 0;
@@ -347,6 +349,7 @@ RT_EXPORT int rt_flash_wgmma_scores(const void* q, const void* k, float* s_out, 
   using flash_wgmma::launch_scores;
   switch (hd) {
     case 64: return launch_scores<64>(q, k, s_out, T, S, qs, ks, s);
+    case 80: return launch_scores<80>(q, k, s_out, T, S, qs, ks, s);
     case 128: return launch_scores<128>(q, k, s_out, T, S, qs, ks, s);
     case 256: return launch_scores<256>(q, k, s_out, T, S, qs, ks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

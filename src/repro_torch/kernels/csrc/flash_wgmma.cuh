@@ -1,5 +1,5 @@
 // The tensor-core design of flash_attention for Hopper: bf16 inputs, head
-// dims 64, 128 and 256.  Same function as the CUDA-core kernel in
+// dims 64, 80, 128 and 256.  Same function as the CUDA-core kernel in
 // flash_attention.cu (see its header for the contract); this file holds the
 // kernel and its host launch.
 //
@@ -10,12 +10,12 @@
 //    full (TMA landed) and empty (both consumers done) mbarriers;
 //  - warpgroups 1 and 2, the consumers, take the registers
 //    (setmaxnreg.inc) and own 64 query rows each.  Per key tile:
-//    S = Q K^T by wgmma (Q and K K-major in 128-byte-swizzled shared
-//    memory), the scale hd^-0.5, the cap and the mask applied in float32 on
-//    the accumulator layout, the online softmax in registers (row max and
-//    row sum over the 4 lanes that share a row), then the tile's P V by
-//    wgmma, 64 columns of hd at a time, with P from registers and V from
-//    shared memory read MN-major (the transpose bit: no transposing copy).
+//    S = Q K^T by wgmma (Q and K K-major in swizzled shared memory), the
+//    scale hd^-0.5, the cap and the mask applied in float32 on the
+//    accumulator layout, the online softmax in registers (row max and row
+//    sum over the 4 lanes that share a row), then the tile's P V by wgmma,
+//    64 columns of hd at a time, with P from registers and V from shared
+//    memory read MN-major (the transpose bit: no transposing copy).
 //    The two consumers take turns on the tensor cores (named barriers), so
 //    one's softmax runs under the other's products.
 //
@@ -34,14 +34,14 @@
 // across a 2048-key row, the truncation moved small outputs of qwen2-0.5b's
 // layers by up to 2.4 bf16 ulps.)  Q K^T likewise: chained over hd in one
 // accumulator, the truncation repeats once per 16 columns of hd, so each
-// half of hd is a chain of its own and the CUDA cores add the two (issue_qk,
-// finish_qk): where scores are large (q and k three times the unit normal)
-// the design's outputs then sit over 1 bf16 ulp of a float64 evaluation
-// less often, and less far, than the float32 plain version's
-// (chip_smoke.py's gate; PERF.md §6).  The exponentials
-// are 2^(s * hd^-0.5 * log2(e) - m') on the special-function unit, with the
-// row max m' rounded once per tile and reused in the rescaling, so its
-// rounding cancels.  tests/test_torch_flash.py emulates this arithmetic on
+// half of hd (at hd 80 its first 2 and last 3 slices) is a chain of its own
+// and the CUDA cores add the two (issue_qk, finish_qk): where scores are
+// large (q and k three times the unit normal) the design's outputs then sit
+// over 1 bf16 ulp of a float64 evaluation less often, and less far, than
+// the float32 plain version's (chip_smoke.py's gate; PERF.md §6).  The
+// exponentials are 2^(s * hd^-0.5 * log2(e) - m') on the special-function
+// unit, with the row max m' rounded once per tile and reused in the
+// rescaling, so its rounding cancels.  tests/test_torch_flash.py emulates this arithmetic on
 // the CPU.
 //
 // Masking follows the CUDA-core kernel: masked scores are -1e30, a tile
@@ -50,6 +50,15 @@
 // mask or the window remove entirely are never loaded; a tile that needs no
 // mask skips the per-element test.  TMA zero-fills rows past T or S; the
 // mask still decides by position.
+//
+// Rows of Q, K and V sit in shared memory as column blocks: 64 columns of
+// hd (128 bytes a row) with the 128-byte swizzle, and at hd 80 one more
+// block of the last 16 columns (32 bytes a row) with the 32-byte swizzle,
+// each block loaded by TMA through a tensor map of its own box and swizzle.
+// At hd 80 Q K^T is then 5 k16 slices, 4 in the wide block and 1 in the
+// narrow one, and a tile's P V is one N = 64 and one N = 16 wgmma group in
+// one commit: nothing is padded, so the tensor work per key is 80/128 of
+// hd 128's.
 //
 // Grid: one block per (q tile, b, h), longest causal q tiles first, and the
 // G query heads of one KV group in adjacent blocks, so the K and V tiles
@@ -75,18 +84,29 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tile {
-  static_assert(HD % 64 == 0, "a row is whole 128-byte swizzle rows");
+  static_assert(HD % 64 == 0 || HD % 64 == 16,
+                "a row is whole 128-byte swizzle rows and at most one 32-byte one");
   // keys per tile: the scores, P's pieces, O and one tile's P V share a
   // consumer's 240 registers (BN/2 + 3*BN/8 + HD/2 + 32 of them, and BN/2
   // for Q K^T's second chain while the scores are summed), so a wider head
-  // takes fewer keys
-  static constexpr int BN = HD == 64 ? 128 : HD == 128 ? 64 : 32;
+  // takes fewer keys.  hd 80 needs 204 at 96 keys (an N = 96 wgmma); 64
+  // keys spill nothing but took no less time on the card, and there the
+  // two Q K^T chains gain least over one on the large-score gate (PERF.md §6)
+  static constexpr int BN = HD == 64 ? 128 : HD == 80 ? 96 : HD == 128 ? 64 : 32;
   static constexpr int STAGES = 4;                 // K/V ring depth
   static constexpr int NCB = HD / 64;              // 128-byte column blocks of a row
+  static constexpr int NARROW = HD % 64 / 16;      // 32-byte column blocks of a row: 0 or 1
+  static constexpr int NS = HD / 16;               // k16 slices of Q K^T
+  static constexpr int QK_SPLIT = NS / 2;          // slices in Q K^T's first chain
+  static constexpr int OT = 32 + 8 * NARROW;       // registers of one tile's P V
   static constexpr int Q_CB = kBM * 128;           // bytes of one Q column block
+  static constexpr int Q_NB = kBM * 32;            // bytes of Q's narrow block
   static constexpr int KV_CB = BN * 128;           // bytes of one K or V column block
-  static constexpr int Q_BYTES = NCB * Q_CB;
-  static constexpr int KV_BYTES = NCB * KV_CB;     // one K (or V) tile
+  static constexpr int KV_NB = BN * 32;            // bytes of K's or V's narrow block
+  static constexpr int Q_BYTES = NCB * Q_CB + NARROW * Q_NB;
+  static constexpr int KV_BYTES = NCB * KV_CB + NARROW * KV_NB;  // one K (or V) tile
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0,
+                "every 128-byte-swizzled block starts 1024-byte aligned");
   static constexpr int BARRIERS = 8 * (1 + 3 * STAGES);
   // + 1024: the dynamic shared memory is aligned up to 1024 bytes in the kernel
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BARRIERS + 1024;
@@ -133,22 +153,29 @@ __device__ __forceinline__ int quad_or(int x) {
 }
 
 // S = Q K^T for one warpgroup's 64 rows, Q and K K-major: HD/16 slices of
-// 16 columns of hd, each one m64nBNk16 wgmma.  Inside one wgmma the tensor
-// cores cut each product and the accumulator toward zero to a multiple of
-// 2^(E - 25), E the largest exponent among them, and cut the sum toward zero
-// to float32 (scripts/flash_qk_probe.py measures it; tests/test_torch_flash.py
-// models it bit for bit).  Chaining every slice into one accumulator repeats
-// that cut, all of one sign, HD/16 times at |S|.  So the two halves of hd
-// are two chains, into sc and st (BN/2 more registers, live only while the
-// scores are summed), issued together; after the wait the CUDA cores add
-// them, S = sc + st rounded to nearest.
+// 16 columns of hd, each one m64nBNk16 wgmma (q_wg and q_nb: this
+// warpgroup's rows in Q's first wide block and in its narrow block).
+// Inside one wgmma the tensor cores cut each product and the accumulator
+// toward zero to a multiple of 2^(E - 25), E the largest exponent among
+// them, and cut the sum toward zero to float32 (scripts/flash_qk_probe.py
+// measures it; tests/test_torch_flash.py models it bit for bit).  Chaining
+// every slice into one accumulator repeats that cut, all of one sign, HD/16
+// times at |S|.  So the two halves of hd are two chains, into sc and st
+// (BN/2 more registers, live only while the scores are summed), issued
+// together: slices 0..QK_SPLIT-1 and the rest (at hd 80: 0-1 and 2-4);
+// after the wait the CUDA cores add them, S = sc + st rounded to nearest.
 template <int HD, int BN>
-__device__ __forceinline__ void qk_slice(float (&d)[BN / 2], uint32_t q_wg, uint32_t k_tile,
-                                         int kk, int scale_d) {
+__device__ __forceinline__ void qk_slice(float (&d)[BN / 2], uint32_t q_wg, uint32_t q_nb,
+                                         uint32_t k_tile, int kk, int scale_d) {
   using C = Tile<HD>;
-  const uint32_t off = (kk % 4) * 32;
-  wgmma_ss<BN>(d, desc_sw128(q_wg + (kk / 4) * C::Q_CB + off, 16, 1024),
-               desc_sw128(k_tile + (kk / 4) * C::KV_CB + off, 16, 1024), scale_d);
+  if (kk < 4 * C::NCB) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<BN>(d, desc_sw128(q_wg + (kk / 4) * C::Q_CB + off, 16, 1024),
+                 desc_sw128(k_tile + (kk / 4) * C::KV_CB + off, 16, 1024), scale_d);
+  } else {  // the narrow block: its 32-byte rows are one slice
+    wgmma_ss<BN>(d, desc_sw32(q_nb, 16, 256), desc_sw32(k_tile + C::NCB * C::KV_CB, 16, 256),
+                 scale_d);
+  }
 }
 
 template <int BN>
@@ -163,14 +190,15 @@ __device__ __forceinline__ void fence_scores(float (&sc)[BN / 2], float (&st)[BN
 // issues both chains (not waited for)
 template <int HD, int BN>
 __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], float (&st)[BN / 2],
-                                         uint32_t q_wg, uint32_t k_tile) {
-  constexpr int NS = HD / 16;
+                                         uint32_t q_wg, uint32_t q_nb, uint32_t k_tile) {
+  constexpr int NS = Tile<HD>::NS, SPLIT = Tile<HD>::QK_SPLIT;
   fence_scores<BN>(sc, st);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < NS / 2; ++kk) qk_slice<HD, BN>(sc, q_wg, k_tile, kk, kk > 0);
+  for (int kk = 0; kk < SPLIT; ++kk) qk_slice<HD, BN>(sc, q_wg, q_nb, k_tile, kk, kk > 0);
 #pragma unroll
-  for (int kk = NS / 2; kk < NS; ++kk) qk_slice<HD, BN>(st, q_wg, k_tile, kk, kk > NS / 2);
+  for (int kk = SPLIT; kk < NS; ++kk)
+    qk_slice<HD, BN>(st, q_wg, q_nb, k_tile, kk, kk > SPLIT);
   wgmma_commit();
 }
 
@@ -185,24 +213,35 @@ __device__ __forceinline__ void finish_qk(float (&sc)[BN / 2], float (&st)[BN / 
 // O = corr * O + P V for one tile, 64 columns of hd at a time: each
 // column block's P V goes into ot in the tensor cores (P's three pieces
 // from registers, V read MN-major: 16 keys of 128-byte rows per slice),
-// then into o on the CUDA cores.  The last block's merge is left to the
-// caller, after this consumer's turn.
+// then into o on the CUDA cores.  The narrow block's 16 columns (16 keys of
+// 32-byte rows per slice) go into ot[32..40) in the last block's commit.
+// The last block's merge is left to the caller, after this consumer's turn.
 template <int HD>
-__device__ __forceinline__ void merge_block(float (&o)[HD / 2], const float (&ot)[32],
+__device__ __forceinline__ void merge_block(float (&o)[HD / 2], const float (&ot)[Tile<HD>::OT],
                                             const float (&corr)[2], int cb) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[32 * cb + i] = fmaf(o[32 * cb + i], corr[(i >> 1) & 1], ot[i]);
 }
 
+template <int HD>
+__device__ __forceinline__ void merge_last(float (&o)[HD / 2], const float (&ot)[Tile<HD>::OT],
+                                           const float (&corr)[2]) {
+  using C = Tile<HD>;
+  merge_block<HD>(o, ot, corr, C::NCB - 1);
+#pragma unroll
+  for (int i = 32; i < C::OT; ++i)
+    o[32 * (C::NCB - 1) + i] = fmaf(o[32 * (C::NCB - 1) + i], corr[(i >> 1) & 1], ot[i]);
+}
+
 template <int HD, int BN>
-__device__ __forceinline__ void pv(float (&o)[HD / 2], float (&ot)[32],
+__device__ __forceinline__ void pv(float (&o)[HD / 2], float (&ot)[Tile<HD>::OT],
                                    uint32_t (&pa)[3][BN / 16][4], const float (&corr)[2],
                                    uint32_t v_tile) {
   using C = Tile<HD>;
 #pragma unroll
   for (int cb = 0; cb < C::NCB; ++cb) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) fence_reg(ot[i]);
+    for (int i = 0; i < C::OT; ++i) fence_reg(ot[i]);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j) {
@@ -212,10 +251,22 @@ __device__ __forceinline__ void pv(float (&o)[HD / 2], float (&ot)[32],
       for (int piece = 0; piece < 3; ++piece)
         wgmma_rs_m64n64k16(ot, pa[piece][j], dv, j + piece > 0);
     }
+    if constexpr (C::NARROW > 0) {
+      if (cb + 1 == C::NCB) {
+#pragma unroll
+        for (int j = 0; j < BN / 16; ++j) {
+          // N = 16 is one swizzle column: lbo unused
+          const uint64_t dv = desc_sw32(v_tile + C::NCB * C::KV_CB + j * 512, 0, 256);
+#pragma unroll
+          for (int piece = 0; piece < 3; ++piece)
+            wgmma_rs_m64n16k16(ot + 32, pa[piece][j], dv, j + piece > 0);
+        }
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) fence_reg(ot[i]);
+    for (int i = 0; i < C::OT; ++i) fence_reg(ot[i]);
     if (cb + 1 < C::NCB) merge_block<HD>(o, ot, corr, cb);
   }
 #pragma unroll
@@ -285,10 +336,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], uint32_t (&pa)
       split3(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1], pa[0][j][r], pa[1][j][r], pa[2][j][r]);
 }
 
+// tq, tk, tv: the 128-byte-swizzled column blocks; tqn, tkn, tvn: the
+// narrow blocks (hd 80; unused at the other head dims)
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const Params p) {
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tqn,
+                   const __grid_constant__ CUtensorMap tkn,
+                   const __grid_constant__ CUtensorMap tvn, const Params p) {
   using C = Tile<HD>;
   constexpr int BN = C::BN, ST = C::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -337,19 +392,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       mbar_expect_tx(q_full, C::Q_BYTES);
       for (int c = 0; c < C::NCB; ++c)
         tma_load_4d(sq + c * C::Q_CB, &tq, 64 * c, h, q0, b, q_full);
+      if (C::NARROW) tma_load_4d(sq + C::NCB * C::Q_CB, &tqn, 64 * C::NCB, h, q0, b, q_full);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % ST;
         // the first pass over the ring finds every stage empty
         mbar_wait(kv_empty + 8 * s, ((it / ST) & 1) ^ 1);
         const int k0 = kv_begin + it * BN;
+        const uint32_t kt = sk + s * C::KV_BYTES, vt = sv + s * C::KV_BYTES;
         mbar_expect_tx(k_full + 8 * s, C::KV_BYTES);
         for (int c = 0; c < C::NCB; ++c)
-          tma_load_4d(sk + s * C::KV_BYTES + c * C::KV_CB, &tk, 64 * c, kvh, k0, b,
-                      k_full + 8 * s);
+          tma_load_4d(kt + c * C::KV_CB, &tk, 64 * c, kvh, k0, b, k_full + 8 * s);
+        if (C::NARROW)
+          tma_load_4d(kt + C::NCB * C::KV_CB, &tkn, 64 * C::NCB, kvh, k0, b, k_full + 8 * s);
         mbar_expect_tx(v_full + 8 * s, C::KV_BYTES);
         for (int c = 0; c < C::NCB; ++c)
-          tma_load_4d(sv + s * C::KV_BYTES + c * C::KV_CB, &tv, 64 * c, kvh, k0, b,
-                      v_full + 8 * s);
+          tma_load_4d(vt + c * C::KV_CB, &tv, 64 * c, kvh, k0, b, v_full + 8 * s);
+        if (C::NARROW)
+          tma_load_4d(vt + C::NCB * C::KV_CB, &tvn, 64 * C::NCB, kvh, k0, b, v_full + 8 * s);
       }
     }
   } else {
@@ -360,7 +419,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int c2 = 2 * (lane % 4);
     const int t_lo = q0 + 64 * cw;
     const int t0 = t_lo + warp * 16 + lane / 4, t1 = t0 + 8;  // this thread's two rows
-    const uint32_t q_wg = sq + cw * 64 * 128;
+    const uint32_t q_wg = sq + cw * 64 * 128, q_nb = sq + C::NCB * C::Q_CB + cw * 64 * 32;
     const float c = p.cap > 0.f ? kLog2e : p.scale * kLog2e;
     // Ping-pong: a consumer issues its products only between a sync on its
     // own named barrier and an arrive on the other's, so the two take turns
@@ -370,15 +429,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
     const int bar_mine = 1 + cw, bar_other = 2 - cw;
 
     // o: the running output, in float32 on the CUDA cores; ot: one tile's
-    // P V for 64 columns, in the tensor cores.  Their float32 sums truncate,
-    // so adding tile after tile there drifts with the row's length; o is
-    // rounded to nearest, once per tile.
-    float o[HD / 2], ot[32], sc[BN / 2], st[BN / 2];
+    // P V for 64 columns (and the narrow block's 16), in the tensor cores.
+    // Their float32 sums truncate, so adding tile after tile there drifts
+    // with the row's length; o is rounded to nearest, once per tile.
+    float o[HD / 2], ot[C::OT], sc[BN / 2], st[BN / 2];
     uint32_t pa[3][BN / 16][4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) ot[i] = 0.f;
+    for (int i = 0; i < C::OT; ++i) ot[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) sc[i] = st[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
@@ -406,12 +465,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       if constexpr (decltype(not_last)::value) {
         const int s1 = (it + 1) % ST;
         mbar_wait(k_full + 8 * s1, ((it + 1) / ST) & 1);
-        issue_qk<HD, BN>(sc, st, q_wg, sk + s1 * C::KV_BYTES);
+        issue_qk<HD, BN>(sc, st, q_wg, q_nb, sk + s1 * C::KV_BYTES);
         named_bar_arrive(bar_other, 256);
       } else if (cw == 0) {
         named_bar_arrive(bar_other, 256);
       }
-      merge_block<HD>(o, ot, corr, C::NCB - 1);
+      merge_last<HD>(o, ot, corr);
     };
 
     mbar_wait(q_full, 0);
@@ -419,7 +478,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       if (cw == 1) named_bar_arrive(bar_other, 256);
       named_bar_sync(bar_mine, 256);
       mbar_wait(k_full, 0);
-      issue_qk<HD, BN>(sc, st, q_wg, sk);
+      issue_qk<HD, BN>(sc, st, q_wg, q_nb, sk);
       named_bar_arrive(bar_other, 256);
       for (int it = 0; it + 1 < n_tiles; ++it) step(it, std::true_type{});
       step(n_tiles - 1, std::false_type{});
@@ -448,7 +507,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
 template <int HD>
 __global__ void __launch_bounds__(128, 1)
 flash_wgmma_scores_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk, float* s_out, int T, int S) {
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tqn,
+                          const __grid_constant__ CUtensorMap tkn, float* s_out, int T, int S) {
   using C = Tile<HD>;
   constexpr int BN = C::BN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -467,12 +528,16 @@ flash_wgmma_scores_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load_4d(sq + c * C::Q_CB, &tq, 64 * c, 0, q0, 0, bar);
       tma_load_4d(sk + c * C::KV_CB, &tk, 64 * c, 0, k0, 0, bar);
     }
+    if (C::NARROW) {
+      tma_load_4d(sq + C::NCB * C::Q_CB, &tqn, 64 * C::NCB, 0, q0, 0, bar);
+      tma_load_4d(sk + C::NCB * C::KV_CB, &tkn, 64 * C::NCB, 0, k0, 0, bar);
+    }
   }
   mbar_wait(bar, 0);
   float sc[BN / 2], st[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sc[i] = st[i] = 0.f;
-  issue_qk<HD, BN>(sc, st, sq, sk);
+  issue_qk<HD, BN>(sc, st, sq, sq + C::NCB * C::Q_CB, sk);
   wgmma_wait<0>();
   finish_qk<BN>(sc, st);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, c2 = 2 * (lane % 4);
@@ -510,18 +575,35 @@ inline EncodeTiled encode_tiled() {
 
 // Rank-4 view (hd, heads, L, B) of a (B, L, heads, hd) bf16 tensor through its
 // element strides s0 (B), s1 (L), s2 (heads); boxes of 64 x 1 x rows x 1,
-// 128-byte swizzled.  Returns the driver's CUresult.
+// 128-byte swizzled, or with `narrow` 16 x 1 x rows x 1, 32-byte swizzled.
+// Returns the CUresult of cuTensorMapEncodeTiled.
 inline CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int hd, int heads,
-                       int L, int B, long long s0, long long s1, long long s2, int rows) {
+                       int L, int B, long long s0, long long s1, long long s2, int rows,
+                       bool narrow = false) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(L), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s2) * 2, static_cast<cuuint64_t>(s1) * 2,
                                  static_cast<cuuint64_t>(s0) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {narrow ? 16u : 64u, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            narrow ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The wide and, where the head dim has one, the narrow tensor map of one
+// operand (else the narrow map is a copy of the wide one, never read).
+template <int HD>
+inline CUresult encode_pair(EncodeTiled fn, CUtensorMap* wide, CUtensorMap* narrow,
+                            const void* base, int heads, int L, int B, const long long* s,
+                            int rows) {
+  CUresult r = encode(fn, wide, base, HD, heads, L, B, s[0], s[1], s[2], rows);
+  if (r != CUDA_SUCCESS || !Tile<HD>::NARROW) {
+    *narrow = *wide;
+    return r;
+  }
+  return encode(fn, narrow, base, HD, heads, L, B, s[0], s[1], s[2], rows, true);
 }
 
 // Returns 0, a cudaError_t, or minus the CUresult of a failed tensor-map encode.
@@ -532,17 +614,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T,
   using C = Tile<HD>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv;
-  CUresult r = encode(fn, &tq, q, HD, H, T, B, qs[0], qs[1], qs[2], kBM);
+  CUtensorMap tq, tk, tv, tqn, tkn, tvn;
+  CUresult r = encode_pair<HD>(fn, &tq, &tqn, q, H, T, B, qs, kBM);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   if (S > 0) {
-    r = encode(fn, &tk, k, HD, K, S, B, ks[0], ks[1], ks[2], C::BN);
+    r = encode_pair<HD>(fn, &tk, &tkn, k, K, S, B, ks, C::BN);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-    r = encode(fn, &tv, v, HD, K, S, B, vs[0], vs[1], vs[2], C::BN);
+    r = encode_pair<HD>(fn, &tv, &tvn, v, K, S, B, vs, C::BN);
     if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   } else {  // no key: the kernel loads no K or V tile
-    tk = tq;
-    tv = tq;
+    tk = tv = tq;
+    tkn = tvn = tqn;
   }
   cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -552,30 +634,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int T,
   const long long blocks = static_cast<long long>(n_qtiles) * B * H;
   if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
   flash_wgmma_kernel<HD>
-      <<<static_cast<unsigned>(blocks), kThreads, C::SMEM, stream>>>(tq, tk, tv, p);
+      <<<static_cast<unsigned>(blocks), kThreads, C::SMEM, stream>>>(tq, tk, tv, tqn, tkn, tvn,
+                                                                      p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // flash_wgmma_scores_kernel over q (1, T, 1, HD) and k (1, S, 1, HD) into s_out
-// (T, S); T a multiple of 64 and S of the key tile.  Returns as launch().
+// (T, S); T a multiple of 64.  Returns as launch().
 template <int HD>
 int launch_scores(const void* q, const void* k, float* s_out, int T, int S, const long long* qs,
                   const long long* ks, cudaStream_t stream) {
   using C = Tile<HD>;
-  if (T <= 0 || S <= 0 || T % 64 || S % C::BN) return static_cast<int>(cudaErrorInvalidValue);
+  if (T <= 0 || S <= 0 || T % 64) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk;
-  CUresult r = encode(fn, &tq, q, HD, 1, T, 1, qs[0], qs[1], qs[2], kBM);
+  CUtensorMap tq, tk, tqn, tkn;
+  CUresult r = encode_pair<HD>(fn, &tq, &tqn, q, 1, T, 1, qs, kBM);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
-  r = encode(fn, &tk, k, HD, 1, S, 1, ks[0], ks[1], ks[2], C::BN);
+  r = encode_pair<HD>(fn, &tk, &tkn, k, 1, S, 1, ks, C::BN);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const int smem = C::Q_BYTES + C::KV_BYTES + 8 + 1024;
   cudaError_t e = cudaFuncSetAttribute(flash_wgmma_scores_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_wgmma_scores_kernel<HD>
-      <<<dim3(T / 64, S / C::BN), 128, smem, stream>>>(tq, tk, s_out, T, S);
+      <<<dim3(T / 64, (S + C::BN - 1) / C::BN), 128, smem, stream>>>(tq, tk, tqn, tkn, s_out, T,
+                                                                       S);
   return static_cast<int>(cudaGetLastError());
 }
 

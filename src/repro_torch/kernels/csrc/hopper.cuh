@@ -92,16 +92,32 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // --- wgmma
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand (the
-// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte
-// aligned).  K-major: rows of 128 bytes, `sbo` = 1024 between groups of 8
-// rows, `lbo` unused.  MN-major: 8 rows of 128 bytes along K form a group,
-// `sbo` = 1024 between groups along K, `lbo` between 64-element blocks along
-// M or N.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled operand; `layout` is the
+// descriptor's layout type (1: 128-byte swizzle, 3: 32-byte swizzle).
+__device__ __forceinline__ uint64_t desc_swizzled(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                                  uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// A 128-byte-swizzled operand (the layout TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte aligned).  K-major: rows of
+// 128 bytes, `sbo` = 1024 between groups of 8 rows, `lbo` unused.  MN-major:
+// 8 rows of 128 bytes along K form a group, `sbo` = 1024 between groups along
+// K, `lbo` between 64-element blocks along M or N.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return desc_swizzled(addr, lbo, sbo, 1);
+}
+
+// A 32-byte-swizzled operand (CU_TENSOR_MAP_SWIZZLE_32B: rows of 32 bytes,
+// 16 bf16 values, whose two 16-byte halves swap in rows 4-7 of every 8;
+// tiles 256-byte aligned).  K-major: one k16 slice per row, `sbo` = 256
+// between groups of 8 rows, `lbo` unused.  MN-major: 8 rows of 32 bytes
+// along K form a group, `sbo` = 256 between groups along K, `lbo` between
+// 16-element blocks along M or N.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return desc_swizzled(addr, lbo, sbo, 3);
 }
 
 // orders register writes before the next wgmma reads its operands
@@ -164,6 +180,31 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float* d, uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[0..48) (+)= A B: A = 64 x 16 K-major from shared memory (desc_a), B =
+// 96 x 16 K-major from shared memory (desc_b); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n96k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+      "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[0..64) (+)= A B: A = 64 x 16 K-major from shared memory (desc_a), B =
 // 128 x 16 K-major from shared memory (desc_b); scale_d = 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
@@ -216,11 +257,26 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d[0..8) (+)= A B: A = 64 x 16 from registers, as wgmma_rs_m64n64k16's, B =
+// 16 x 16 MN-major from shared memory (desc_b); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float* d, const uint32_t* a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128, "no wrapper for this width");
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128, "no wrapper for this width");
   if constexpr (N == 32) wgmma_ss_m64n32k16(d, desc_a, desc_b, scale_d);
   else if constexpr (N == 64) wgmma_ss_m64n64k16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 96) wgmma_ss_m64n96k16(d, desc_a, desc_b, scale_d);
   else wgmma_ss_m64n128k16(d, desc_a, desc_b, scale_d);
 }
 

@@ -165,9 +165,10 @@ def gossip_mix(rows: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
 
 # head dims instantiated in csrc/flash_attention.cu: those of every config (32 when reduced)
 FLASH_HEAD_DIMS = (32, 48, 64, 80, 128, 256)
-# head dims of the tensor-core design (csrc/flash_wgmma.cuh), bf16 only: whole
-# 128-byte rows of the TMA swizzle
-WGMMA_HEAD_DIMS = (64, 128, 256)
+# head dims of the tensor-core design (csrc/flash_wgmma.cuh), bf16 only: rows
+# of whole 128-byte swizzle rows, and at 80 one 32-byte swizzle row more;
+# bf16 at 32 and 48 (reduced configs only) runs the CUDA-core design
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 
 
 def flash_design(dtype: torch.dtype, hd: int) -> str:

@@ -145,8 +145,10 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(call):
 
 _LOG2E = np.float32(1.4426950408889634)
 # keys per tile of csrc/flash_wgmma.cuh (Tile<HD>::BN); 128 for the other dims
-_KEYS_PER_TILE = {64: 128, 128: 64, 256: 32}
+_KEYS_PER_TILE = {64: 128, 80: 96, 128: 64, 256: 32}
 PRECISION_CASE = (1, 512, 512, 14, 2, 64, True, None, 0.0)  # qwen2-0.5b's heads
+# hubert-xlarge's bidirectional MHA at hd 80, over two whole key tiles and a ragged one
+HD80_CASE = (1, 200, 200, 4, 4, 80, False, None, 0.0)
 
 
 def _top16(x: torch.Tensor) -> torch.Tensor:
@@ -198,21 +200,22 @@ def _wgmma_k16(c, a, b):
     return _to_f32_toward_zero(s)
 
 
-# Q K^T chains of csrc/flash_wgmma.cuh's issue_qk: the two halves of hd
+# Q K^T chains of csrc/flash_wgmma.cuh's issue_qk: the two halves of hd, at
+# hd 80 slices 0-1 and 2-4 (Tile<HD>::QK_SPLIT = hd/16 // 2)
 _QK_CHAINS = 2
 
 
 def _qk_tensor_cores(q, k, chains):
     """Q K^T of the wgmma design for q (..., T, hd), k (..., N, hd): the
     16-column slices of hd in ``chains`` contiguous chains, each summed in
-    one tensor-core accumulator (slice j in chain j * chains // (hd/16)),
-    and the chains added in order in float32.  One chain is the design
-    before; ``_QK_CHAINS`` the kernel's."""
+    one tensor-core accumulator (chain a holds slices a * ns // chains up to
+    (a + 1) * ns // chains, ns = hd/16), and the chains added in order in
+    float32.  One chain is the design before; ``_QK_CHAINS`` the kernel's."""
     ns = q.shape[-1] // 16
     s = None
     for a in range(chains):
         acc = None
-        for j in range(-(-a * ns // chains), -(-(a + 1) * ns // chains)):
+        for j in range(a * ns // chains, (a + 1) * ns // chains):
             acc = _wgmma_k16(acc, q[..., :, None, 16 * j:16 * j + 16],
                              k[..., None, :, 16 * j:16 * j + 16])
         s = acc if s is None else s + acc
@@ -282,7 +285,7 @@ def _values_over_one_ulp(case, pieces, seed=0, qk="float32") -> int:
     return int(((got.float() - want.float()).abs() > ulp.clamp_min(1e-6)).sum())
 
 
-@pytest.mark.parametrize("case", CASES + [PRECISION_CASE], ids=str)
+@pytest.mark.parametrize("case", CASES + [PRECISION_CASE, HD80_CASE], ids=str)
 def test_three_pieces_of_p_keep_the_kernel_within_one_bf16_ulp(case):
     # the scores summed as the card's tensor cores sum them (_wgmma_k16)
     assert _values_over_one_ulp(case, pieces=3, qk="design") == 0
@@ -298,8 +301,9 @@ def test_fewer_pieces_of_p_go_over_one_bf16_ulp(pieces):
 
 # scripts/flash_qk_probe.py's output on an NVIDIA H100 80GB HBM3 (700 W): the
 # card's Q K^T of seeded bf16 q (16 rows) and k (32 rows), three times the
-# unit normal, in one chain (the order the design had before) and in the
-# design's two chains, and rows built to show one wgmma's sum
+# unit normal, in one chain (the order the design had before; at hd 80 a
+# copy of the kernel built so) and in the design's two chains, and rows
+# built to show one wgmma's sum
 _PROBE = Path(__file__).parent / "data" / "wgmma_qk_probe.npz"
 
 
@@ -307,7 +311,7 @@ def _bf16(bits: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(bits.astype(np.int32) << 16).view(torch.float32)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_tensor_core_sum_model_matches_the_card(hd):
     """The emulation's wgmma reproduces the card's scores bit for bit, in
     the kernel's order (chains added on the CUDA cores) and in one chain."""
@@ -369,7 +373,7 @@ def test_large_scores_move_the_float32_plain_version_not_the_kernel():
 @pytest.mark.parametrize("hd", ops.FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
 def test_flash_design_by_dtype_and_head_dim(dtype, hd):
-    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256) else "cuda_core"
+    want = "wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256) else "cuda_core"
     assert ops.flash_design(dtype, hd) == want
 
 
