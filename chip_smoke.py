@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (TMA) instructions in the flash library's SASS
   2. card      print the card's name and power limit (nvidia-smi)
   3. kernels   hold each kernel against its plain version on the card at the
-               main path's shape (k=10, P=4,698,112) and at a ragged shape,
+               main path's shape (k=10, P=4,698,112), at the async flushes'
+               k=5 (timed too) and at a ragged shape,
                and time kernel, plain version and (where one exists) a
                PyTorch library call with CUDA events; ``gossip_mix`` also at
                65, 128 and 256 rows (its wide kernel), timed at 128;
@@ -46,7 +47,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
   6. profile   one more DP round and one more gossip round under
                ``torch.profiler``: device time by kernel and the device's
                busy share
-  7. llm       qwen2-0.5b at full width and depth (494,032,768 parameters,
+  7. async     the async_hier strategy at the main path's width: 50
+               clients in 2 regions, waves of 10, 5 local steps of batch 32,
+               rl_green, buffer_k 5, concurrency 20, edge sync every 2
+               flushes, staleness cap 10, latency spread 1.0, 6 global
+               flushes; plain FedAvg (``staleness_agg``) and secure-agg with
+               DP and per-region accounting (``clip_quant_mask``,
+               ``masked_agg``), counters zeroed around each; every kernel call
+               at k = 5, and each flush's kernels seen in ``torch.profiler``
+               inside a "<kernel> k=5" range; flush and aggregate times, busy
+               share, staleness, each region's epsilon, peak memory.  Then
+               the sync-equivalence anchor: one region, no spread, a buffer
+               of one wave, FedAvg secure-agg, 3 rounds, against the
+               synchronous strategy: the same cohorts, staleness 0, loss
+               within 1e-5 and accuracy within 1e-3
+  8. resume    for sync (DP + top-k 0.05: the 0.875 GiB EF bank rides the
+               checkpoint), gossip (ring) and async_hier (2 regions, DP +
+               secure-agg): an uninterrupted 4-round run checkpointing every
+               2 rounds (keep 2), a child process that checkpoints and
+               SIGKILLs itself while round 2 is emitted, and a fresh child
+               that resumes: its history equals the uninterrupted run's
+               tail exactly; checkpoint bytes, write and snapshot times
+  9. llm       qwen2-0.5b at full width and depth (494,032,768 parameters,
                bf16, random weights from a seed): a flash prefill of 4 x 2048
                tokens (``forward(..., use_flash=True)``, counters zeroed
                around it: 24 ``flash_attention`` launches, all on the wgmma
@@ -56,7 +78,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                through ``make_decode_step``, 16 greedy tokens, the prompt's
                decode logits held against its flash prefill; rates, peak
                memory, and one flash prefill under ``torch.profiler``
-  8. hubert    hubert-xlarge's encoder at full width and depth (945,789,440
+ 10. hubert    hubert-xlarge's encoder at full width and depth (945,789,440
                parameters, bf16, random weights from a seed) over 4 clips of
                2048 frames of 512 dims with a mask at ``cfg.mask_prob``:
                ``forward(..., use_flash=True)`` (counters zeroed around it:
@@ -70,9 +92,11 @@ imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -85,6 +109,7 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 
 MAIN_K, MAIN_P, MAIN_DIM = 10, 4_698_112, 4_696_394   # ResNet-Tiny cohort rows
 RAGGED_K, RAGGED_P, RAGGED_DIM = 3, 100_003, 99_001
+ASYNC_K = 5                        # buffer_k: the rows of every async flush
 GOSSIP_RAGGED_K = 7                # a gossip cohort on the ragged P
 GOSSIP_WIDE_K = (65, 128, 256)     # cohorts past the register kernel's 64 rows
 GOSSIP_TIMED_K = 128
@@ -116,6 +141,25 @@ def _bound(bytes_moved: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _timed_at_k5(results: dict, k: int):
+    """At the async flushes' k, a function that times a kernel, its plain
+    version and (if any) a library call and adds them to the kernel's
+    results under ``*_k5`` keys; None at other k."""
+    if k != ASYNC_K:
+        return None
+
+    def timed(name, bound_ms, kernel, plain, library=None):
+        r = {"ms_k5": _time_ms(kernel), "plain_ms_k5": _time_ms(plain),
+             "library_ms_k5": None if library is None else _time_ms(library),
+             "bound_ms_k5": bound_ms}
+        results[name].update(r)
+        print(f"[kernels] {name} k={k}: kernel_ms={r['ms_k5']:.4f} "
+              f"plain_ms={r['plain_ms_k5']:.4f} library_ms={r['library_ms_k5']} "
+              f"bound_ms={bound_ms:.4f} (bytes)")
+
+    return timed
+
+
 def kernel_phase(torch, ops, ref) -> dict:
     """Parity and times of every kernel; returns name -> result dict."""
     dev = torch.device("cuda")
@@ -125,8 +169,11 @@ def kernel_phase(torch, ops, ref) -> dict:
     def pads(k, p):
         return torch.randint(-2**31, 2**31, (k, p), dtype=torch.int32, device=dev, generator=gen)
 
-    for k, P, dim in ((MAIN_K, MAIN_P, MAIN_DIM), (RAGGED_K, RAGGED_P, RAGGED_DIM)):
+    # the main path's k = 10 first, then the async flushes' k = 5 (timed too)
+    for k, P, dim in ((MAIN_K, MAIN_P, MAIN_DIM), (ASYNC_K, MAIN_P, MAIN_DIM),
+                      (RAGGED_K, RAGGED_P, RAGGED_DIM)):
         main = k == MAIN_K
+        timed = _timed_at_k5(results, k)
         # --- staleness_agg: Eq. 6 weighted sum of delta rows
         deltas = torch.randn((k, P), device=dev, generator=gen) * 0.01
         w = torch.rand(k, device=dev, generator=gen)
@@ -145,6 +192,10 @@ def kernel_phase(torch, ops, ref) -> dict:
                 ms=_time_ms(lambda: ops.staleness_aggregate(deltas, w)),
                 plain_ms=_time_ms(lambda: ref.staleness_aggregate_ref(deltas, w)),
                 library_ms=_time_ms(lambda: w @ deltas), bound_ms=b, bound_by=kind)
+        elif timed:
+            b, _ = _bound(k * P * 4 + k * 4 + P * 4, 2 * k * P)
+            timed("staleness_agg", b, lambda: ops.staleness_aggregate(deltas, w),
+                  lambda: ref.staleness_aggregate_ref(deltas, w), lambda: w @ deltas)
         # --- masked_agg: unmask + decode of ring rows
         m = pads(k, P)
         masked = ref.ring_add(ref.encode(deltas * k, SA_CLIP, SA_BITS), m)
@@ -161,6 +212,10 @@ def kernel_phase(torch, ops, ref) -> dict:
                 ms=_time_ms(lambda: ops.masked_aggregate(masked, m, SA_CLIP, SA_BITS)),
                 plain_ms=_time_ms(lambda: ref.masked_aggregate_ref(masked, m, SA_CLIP, SA_BITS)),
                 library_ms=None, bound_ms=b, bound_by=kind)
+        elif timed:
+            b, _ = _bound(2 * k * P * 4 + P * 4, 2 * k * P + 2 * P)
+            timed("masked_agg", b, lambda: ops.masked_aggregate(masked, m, SA_CLIP, SA_BITS),
+                  lambda: ref.masked_aggregate_ref(masked, m, SA_CLIP, SA_BITS))
         del masked
         # --- clip_quant_mask: DP clip + encode + pad; columns past dim are padding
         rows = torch.randn((k, P), device=dev, generator=gen) * 1e-3
@@ -184,6 +239,11 @@ def kernel_phase(torch, ops, ref) -> dict:
                 plain_ms=_time_ms(
                     lambda: ref.clip_quant_mask_ref(rows, m, DP_CLIP, DP_BITS, dim=dim)),
                 library_ms=None, bound_ms=b, bound_by=kind)
+        elif timed:
+            b, _ = _bound(3 * k * P * 4, 6 * k * P)
+            timed("clip_quant_mask", b,
+                  lambda: ops.clip_quant_mask(rows, m, DP_CLIP, DP_BITS, dim=dim),
+                  lambda: ref.clip_quant_mask_ref(rows, m, DP_CLIP, DP_BITS, dim=dim))
         del deltas, m, rows, got, want
         torch.cuda.empty_cache()
     # --- gossip_mix: one mixing pass X <- W X, W of the main path's graphs;
@@ -529,6 +589,364 @@ def profile_phase(torch, name: str) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {name}: {e.self_device_time_total / 1e3:9.2f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# async_hier and checkpoint/resume at full ResNet-Tiny width
+# ---------------------------------------------------------------------------
+
+ASYNC_ROUNDS = 6                 # global flushes
+ASYNC_TOPO = dict(n_regions=2, buffer_k=ASYNC_K, concurrency=20, edge_sync_every=2,
+                  staleness_cap=10, latency_spread=1.0)
+# composition -> kernel -> device launches per call (clip_quant_mask: 3)
+ASYNC = {"async_plain": {"staleness_agg": 1},
+         "async_dp_secagg": {"clip_quant_mask": 3, "masked_agg": 1}}
+DEVICE_KERNELS = {"staleness_agg": ("staleness_agg_kernel",),
+                  "masked_agg": ("masked_agg_kernel",),
+                  "clip_quant_mask": ("norm_partials_kernel", "row_scale_kernel",
+                                      "encode_kernel")}
+RESUME_ROUNDS, RESUME_KILL_AT, RESUME_EVERY, RESUME_KEEP = 4, 2, 2, 2
+RESUME_MODES = ("topk_dp", "gossip_ring", "async_dp_secagg")
+STRATEGY_OF = {"topk_dp": "sync", "gossip_ring": "gossip", "async_dp_secagg": "async_hier"}
+
+
+def _resnet_problem(torch, n_test: int = 512):
+    """The main path's data, shards and weights (full ResNet-Tiny, CIFAR-like
+    data, 50 clients), made from fixed seeds."""
+    from repro_torch.configs.resnet_tiny import CONFIG
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import CIFAR_LIKE, make_image_dataset
+    from repro_torch.models import resnet
+
+    data = make_image_dataset(CIFAR_LIKE, seed=0, n_train=12_500, n_test=n_test)
+    parts = dirichlet_partition(data["train"]["label"], 50, 0.5, seed=0)
+    params = resnet.init_resnet(torch.Generator().manual_seed(0), CONFIG, device="cuda")
+    return data, parts, params
+
+
+def _async_cfg(api, DPConfig, name, rounds: int, topo: dict = ASYNC_TOPO):
+    """The [async] configuration: the main path's clients, waves of 10, two
+    regions; FedAvg plain, or secure-agg with DP (fused) and per-region
+    accounting."""
+    privacy = api.PrivacyConfig()
+    if name == "async_dp_secagg":
+        # sample rate: a wave of 10 over a region of 25 clients
+        privacy = api.PrivacyConfig(secure_agg=True, accounting="per_region", dp=DPConfig(
+            clip=DP_CLIP, sigma=DP_SIGMA, bits=DP_BITS, sample_rate=10 / 25, rounds=rounds))
+    return api.ExperimentConfig(
+        training=api.TrainingConfig(n_clients=50, clients_per_round=10, rounds=rounds,
+                                    local_steps=5, batch_size=32, eval_every=1,
+                                    max_eval_batches=2),
+        privacy=privacy, topology=api.TopologyConfig(mode="async_hier", **topo),
+        orchestrator=api.OrchestratorConfig(selection="rl_green"))
+
+
+def _resume_cfg(api, DPConfig, mode, rounds: int = RESUME_ROUNDS):
+    if mode == "async_dp_secagg":
+        return _async_cfg(api, DPConfig, mode, rounds)
+    return _main_cfg(api, DPConfig, mode, rounds=rounds, max_eval_batches=2)
+
+
+class _KernelCalls:
+    """Records the rows (k) of every aggregation-kernel call on the card and
+    marks each in the profiler as a range "<kernel> k=<k>".  It wraps the
+    wrappers of ``ops``; the launch counters stay theirs."""
+
+    NAMES = ("staleness_aggregate", "masked_aggregate", "clip_quant_mask")
+    KERNEL = {"staleness_aggregate": "staleness_agg", "masked_aggregate": "masked_agg",
+              "clip_quant_mask": "clip_quant_mask"}
+
+    def __init__(self, ops):
+        self.ops, self.calls, self._saved = ops, [], {}
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for name in self.NAMES:
+            fn = self._saved[name] = getattr(self.ops, name)
+
+            def recorded(rows, *args, _fn=fn, _kernel=self.KERNEL[name], **kw):
+                self.calls.append((_kernel, rows.shape[0]))
+                with record_function(f"{_kernel} k={rows.shape[0]}"):
+                    return _fn(rows, *args, **kw)
+
+            setattr(self.ops, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.ops, name, fn)
+
+
+class _TimedAggregate:
+    """Times every ``ctx.aggregate`` call of a federation (the flush's
+    privacy pipeline and kernels) between two synchronizations."""
+
+    def __init__(self, torch, ctx):
+        self.torch, self.times, inner = torch, [], ctx.aggregate
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            return out
+
+        ctx.aggregate = timed
+
+
+def async_phase(torch, ops) -> dict:
+    """The async strategy at full width, both compositions: launches (the
+    counters zeroed around each run), the k of every kernel call, flush
+    times, staleness, per-region epsilon, peak memory; then the same run
+    under torch.profiler for its device time and each kernel's launches.
+    Returns kernel -> launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import api
+    from repro_torch.configs.resnet_tiny import CONFIG
+    from repro_torch.models import resnet
+    from repro_torch.privacy.dp import DPConfig
+
+    data, parts, params = _resnet_problem(torch)
+    total = {name: 0 for name in ops.launches}
+    for name, expected in ASYNC.items():
+        cfg = _async_cfg(api, DPConfig, name, ASYNC_ROUNDS)
+        torch.cuda.reset_peak_memory_stats()
+        fed = api.Federation(cfg, _task(api, data, parts, CONFIG, params, resnet))
+        timer = _TimedAggregate(torch, fed.ctx)
+        ops.reset_launches()
+        with _KernelCalls(ops) as kc:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = fed.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(ops.launches)
+        for kname, n in counts.items():
+            total[kname] += n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in range(len(hist["round"])):
+            print(f"[async] {name} flush {hist['round'][r]}: region={hist['region'][r]} "
+                  f"staleness={hist['staleness'][r]} loss={hist['loss'][r]:.4f} "
+                  f"acc={hist['acc'][r]:.3f} co2_g={hist['co2_g'][r]:.1f} "
+                  f"sim_time_s={hist['sim_time_s'][r]:.3f} eps={hist['eps_spent'][r]} "
+                  f"selected={hist['selected'][r]} aggregate_ms={timer.times[r] * 1e3:.3f}")
+        flushes = len(hist["round"])
+        assert flushes == ASYNC_ROUNDS and fed.ctx.param_dim == MAIN_DIM, (name, flushes)
+        assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
+        assert hist["mean_staleness"] > 0.0, hist["staleness"]
+        assert set(hist["region"]) == {0, 1}, hist["region"]
+        assert all(len(s) == ASYNC_K for s in hist["selected"]), hist["selected"]
+        assert {k for _, k in kc.calls} == {ASYNC_K}, kc.calls
+        for kname in ops.launches:
+            want = flushes if kname in expected else 0
+            assert counts[kname] == want, (name, counts)
+            assert sum(1 for c, _ in kc.calls if c == kname) == want, (name, kc.calls)
+        eps = hist.get("eps_by_region")
+        if expected.get("masked_agg"):
+            assert eps is not None and all(0 < e < math.inf for e in eps.values()), eps
+        print(f"[async] {name}: pipeline={fed.ctx.pipeline.describe()} flushes={flushes} "
+              f"buffer_flushes={hist['buffer_flushes']} launches={counts} "
+              f"kernel calls all at k={ASYNC_K}: {len(kc.calls)}; wall_s={wall:.3f} "
+              f"({wall / flushes:.3f} s a flush, waves' training included); aggregate "
+              f"median_ms={statistics.median(timer.times) * 1e3:.3f}; mean_staleness="
+              f"{hist['mean_staleness']}; eps_by_region={eps}; unflushed_co2_g="
+              f"{hist['unflushed_co2_g']:.1f}; peak_mem_gib={peak:.3f}")
+        del fed
+        torch.cuda.empty_cache()
+
+        # the same run under the profiler: device time, and every flush's
+        # kernels launched from a "<kernel> k=5" range.  The raw events are
+        # read directly: building the profiler's event tree over the run's
+        # ~2 M events takes minutes
+        fed = api.Federation(cfg, _task(api, data, parts, CONFIG, params, resnet))
+        with _KernelCalls(ops), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fed.run()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        kernels = [(e.name(), e.duration_ns()) for e in events
+                   if e.device_type() == DeviceType.CUDA]
+        kernel_s = sum(d for _, d in kernels) / 1e9
+        ranges = collections.Counter(e.name() for e in events
+                                     if e.device_type() == DeviceType.CPU and " k=" in e.name())
+        for kname in expected:
+            assert ranges[f"{kname} k={ASYNC_K}"] == flushes, (name, ranges)
+            for dev in DEVICE_KERNELS[kname]:
+                n = sum(1 for k, _ in kernels if dev in k)
+                ms = sum(d for k, d in kernels if dev in k) / 1e6
+                assert n == flushes, (name, dev, n)
+                print(f"[async] {name} profile: {dev} launched {n}x from {flushes} "
+                      f"'{kname} k={ASYNC_K}' ranges, {ms:.3f} ms in all")
+        assert set(ranges) == {f"{k} k={ASYNC_K}" for k in expected}, ranges
+        print(f"[async] {name} profile: device_kernel_s={kernel_s:.3f} busy_share="
+              f"{kernel_s / wall:.3f} (device time of the profiled run over the unprofiled "
+              f"wall) device_events={len(kernels)}")
+        del fed
+        torch.cuda.empty_cache()
+    return total
+
+
+def async_anchor_phase(torch) -> None:
+    """Sync-equivalence on the card: one region, no latency spread, buffer
+    and concurrency of one wave, every flush synced; FedAvg secure-agg, 3
+    rounds, against SyncStrategy on the same configuration."""
+    from repro_torch import api
+    from repro_torch.configs.resnet_tiny import CONFIG
+    from repro_torch.models import resnet
+    from repro_torch.privacy.dp import DPConfig
+
+    data, parts, params = _resnet_problem(torch)
+    sync_cfg = _main_cfg(api, DPConfig, "secure_agg", rounds=3, max_eval_batches=2)
+    async_cfg = _main_cfg(api, DPConfig, "secure_agg", rounds=3, max_eval_batches=2)
+    async_cfg.topology = api.TopologyConfig(mode="async_hier", n_regions=1, latency_spread=0.0,
+                                            buffer_k=10, concurrency=10, edge_sync_every=1)
+    hs = api.Federation(sync_cfg, _task(api, data, parts, CONFIG, params, resnet)).run()
+    ha = api.Federation(async_cfg, _task(api, data, parts, CONFIG, params, resnet)).run()
+    assert hs["selected"] == ha["selected"], (hs["selected"], ha["selected"])
+    assert all(s == 0.0 for s in ha["staleness"]), ha["staleness"]
+    # the reference's tolerances (tests/test_async.py)
+    assert all(abs(a - b) <= 1e-5 for a, b in zip(hs["loss"], ha["loss"])), (hs, ha)
+    assert all(abs(a - b) <= 1e-3 for a, b in zip(hs["acc"], ha["acc"])), (hs, ha)
+    bitwise = all(hs[k] == ha[k] for k in hs if k in ha)
+    print(f"[async] anchor: cohorts {ha['selected']} equal to sync's; staleness "
+          f"{ha['staleness']}; loss sync {hs['loss']} async {ha['loss']}; acc sync {hs['acc']} "
+          f"async {ha['acc']}; histories bitwise equal: {bitwise}")
+
+
+class _KillAt:
+    """SIGKILLs the process while round ``rnd`` is emitted, after the
+    queued checkpoint writes drained (as examples/quickstart.py does)."""
+
+    def __init__(self, rnd: int, manager):
+        self.rnd, self.manager = rnd, manager
+
+    def emit(self, event):
+        if event.round >= self.rnd:
+            self.manager.wait()
+            print(f"[resume] child: SIGKILL at round {event.round}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _timed_manager(torch, directory: str):
+    """A CheckpointManager that prints, per checkpoint, the snapshot time on
+    the round loop (device-to-host copies included), the write time on its
+    writer thread and the bytes written."""
+    from repro_torch.checkpoint import CheckpointManager, CheckpointPolicy
+
+    class Timed(CheckpointManager):
+        def save(self, strategy, ctx, rnd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(strategy, ctx, rnd)
+            print(f"[resume] checkpoint round {rnd}: snapshot on the round loop "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+            return path
+
+        def _write(self, snap, metadata, rnd):
+            t0 = time.perf_counter()
+            super()._write(snap, metadata, rnd)
+            path = self.step_dir(rnd)
+            size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+            print(f"[resume] checkpoint round {rnd}: wrote {size} bytes in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms (writer thread)", flush=True)
+
+    return Timed(directory, CheckpointPolicy(every_k_rounds=RESUME_EVERY,
+                                             keep_last_n=RESUME_KEEP))
+
+
+def _jsonable(hist: dict) -> dict:
+    """A history as JSON gives it back (str keys of the summary dicts);
+    floats round-trip exactly."""
+    return json.loads(json.dumps(hist))
+
+
+def resume_child(torch, mode: str, role: str, directory: str, out: str) -> int:
+    """One side of [resume] in its own process: ``victim`` checkpoints and
+    SIGKILLs itself while round RESUME_KILL_AT is emitted; ``resume`` resumes
+    from ``directory`` and writes its history to ``out``."""
+    from repro_torch import api
+    from repro_torch.configs.resnet_tiny import CONFIG
+    from repro_torch.models import resnet
+    from repro_torch.privacy.dp import DPConfig
+
+    data, parts, params = _resnet_problem(torch)
+    fed = api.Federation(_resume_cfg(api, DPConfig, mode),
+                         _task(api, data, parts, CONFIG, params, resnet))
+    if role == "victim":
+        manager = _timed_manager(torch, directory)
+        fed.telemetry.append(_KillAt(RESUME_KILL_AT, manager))
+        fed.run(checkpoint=manager)
+        print("[resume] child: the victim was not killed", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    hist = fed.run(resume_from=directory)
+    print(f"[resume] child: resumed {mode} ran {len(hist['round'])} rounds in "
+          f"{time.perf_counter() - t0:.2f} s (restore included)", flush=True)
+    with open(out, "w") as f:
+        json.dump(_jsonable(hist), f)
+    return 0
+
+
+def resume_phase(torch) -> None:
+    """Kill and resume at full width: for each mode, an uninterrupted
+    checkpointing run here, a child that checkpoints and SIGKILLs itself
+    while round 2 is emitted, a fresh child that resumes; the resumed
+    history must equal the uninterrupted run's tail exactly."""
+    import shutil
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.checkpoint import list_steps, load_checkpoint
+    from repro_torch.configs.resnet_tiny import CONFIG
+    from repro_torch.models import resnet
+    from repro_torch.privacy.dp import DPConfig
+
+    data, parts, params = _resnet_problem(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        for mode in RESUME_MODES:
+            full_dir, victim_dir = (os.path.join(root, mode, d) for d in ("full", "victim"))
+            out = os.path.join(root, mode, "resumed.json")
+            fed = api.Federation(_resume_cfg(api, DPConfig, mode),
+                                 _task(api, data, parts, CONFIG, params, resnet))
+            t0 = time.perf_counter()
+            full = _jsonable(fed.run(checkpoint=_timed_manager(torch, full_dir)))
+            print(f"[resume] {mode}: uninterrupted {RESUME_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.2f} s with checkpoints every {RESUME_EVERY}; "
+                  f"retained steps {[r for r, _ in list_steps(full_dir)]}")
+            if mode == "topk_dp":
+                bank = fed.ctx.ef_residuals
+                print(f"[resume] {mode}: EF residual bank {tuple(bank.shape)} float32 "
+                      f"{bank.numel() * 4 / 2**30:.3f} GiB rides the checkpoint")
+            del fed
+            torch.cuda.empty_cache()
+            cmd = [sys.executable, os.path.abspath(__file__), "--resume-child", mode]
+            victim = subprocess.run(cmd + ["victim", victim_dir, out], capture_output=True,
+                                    text=True, timeout=600)
+            print(victim.stdout.strip())
+            assert victim.returncode == -signal.SIGKILL, (victim.returncode, victim.stderr)
+            _, meta = load_checkpoint(victim_dir)
+            rc = meta["round"]
+            assert rc == RESUME_KILL_AT - 1 and meta["strategy"] == STRATEGY_OF[mode], meta
+            resumed = subprocess.run(cmd + ["resume", victim_dir, out], capture_output=True,
+                                     text=True, timeout=600)
+            print(resumed.stdout.strip())
+            assert resumed.returncode == 0, resumed.stderr
+            with open(out) as f:
+                got = json.load(f)
+            assert sorted(got) == sorted(full), (sorted(got), sorted(full))
+            for k, v in full.items():
+                want = v[rc + 1:] if isinstance(v, list) else v
+                assert got[k] == want, f"[resume] {mode}: {k!r} diverged: {got[k]} != {want}"
+            print(f"[resume] {mode}: resumed from round {rc} in a fresh process; rounds "
+                  f"{got['round']} equal the uninterrupted run's on every column (==), "
+                  f"loss {got['loss']}, eps_spent {got['eps_spent']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # (B, T, S, H, K, hd, causal, window, cap): the eight cases of the reference's
@@ -1105,8 +1523,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if sys.argv[1:2] == ["--resume-child"]:  # one side of [resume], in its own process
+        return resume_child(torch, *sys.argv[2:6])
     from repro_torch.kernels import _build, ops, ref
 
+    start = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     secs = _build.build_all()
@@ -1123,6 +1544,14 @@ def main() -> int:
     launches = main_path_phase(torch, ops)
     profile_phase(torch, "dp_fused")
     profile_phase(torch, "gossip_ring")
+    t0 = time.perf_counter()
+    for kname, n in async_phase(torch, ops).items():
+        launches[kname] += n
+    async_anchor_phase(torch)
+    t1 = time.perf_counter()
+    resume_phase(torch)
+    print(f"[time] async phase and anchor {t1 - t0:.1f} s; resume phase "
+          f"{time.perf_counter() - t1:.1f} s")
     # each path's flash_attention launches, read around its own forward
     paths = {"qwen2-0.5b prefill": llm_phase(torch, ops, ref),
              "hubert-xlarge forward": hubert_phase(torch, ops, ref)}
@@ -1148,6 +1577,7 @@ def main() -> int:
         for name in _build.KERNELS]}
     for k in line["kernels"]:
         assert k["launches"] > 0, k
+    print(f"[time] chip_smoke.py {time.perf_counter() - start:.1f} s in all")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

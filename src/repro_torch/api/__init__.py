@@ -6,6 +6,7 @@
     cfg = api.ExperimentConfig(privacy=api.PrivacyConfig(secure_agg=True))
     history = api.Federation(cfg, task, device="cuda").run()
 """
+from repro_torch.api.async_hier import AsyncHierStrategy
 from repro_torch.api.config import (CarbonConfig, CheckpointConfig, EngineConfig,
                                     ExperimentConfig, OrchestratorConfig, PrivacyConfig,
                                     TopologyConfig, TrainingConfig)
@@ -18,15 +19,15 @@ from repro_torch.api.pipeline import (AggregationContext, ClipStage, FusedCompre
                                       upload_bytes_per_client)
 from repro_torch.api.runtime import FederatedTask, RuntimeContext
 from repro_torch.api.sync import SyncStrategy
-from repro_torch.api.telemetry import (CallbackSink, ConsoleSink, HistoryRecorder, MixEvent,
-                                       RoundEvent, TelemetrySink)
+from repro_torch.api.telemetry import (CallbackSink, ConsoleSink, FlushEvent, HistoryRecorder,
+                                       MixEvent, RoundEvent, TelemetrySink)
 
 __all__ = [
-    "AggregationContext", "build_pipeline", "CallbackSink", "CarbonConfig", "CheckpointConfig",
-    "ClipStage", "cohort_wire_bytes", "ConsoleSink", "EngineConfig", "ExperimentConfig",
-    "Federation", "FederatedTask", "fuse_pipeline", "FusedCompressStage", "GossipStrategy",
-    "HistoryRecorder", "MaskStage", "MixEvent", "NoiseStage", "OrchestratorConfig",
-    "PrivacyConfig", "PrivacyPipeline", "QuantizeStage", "RoundEvent", "RuntimeContext",
-    "ScaleStage", "StageRecord", "STRATEGIES", "SyncStrategy", "TelemetrySink",
-    "TopKStage", "TopologyConfig", "TrainingConfig", "upload_bytes_per_client",
+    "AggregationContext", "AsyncHierStrategy", "build_pipeline", "CallbackSink", "CarbonConfig",
+    "CheckpointConfig", "ClipStage", "cohort_wire_bytes", "ConsoleSink", "EngineConfig",
+    "ExperimentConfig", "FederatedTask", "Federation", "FlushEvent", "fuse_pipeline",
+    "FusedCompressStage", "GossipStrategy", "HistoryRecorder", "MaskStage", "MixEvent",
+    "NoiseStage", "OrchestratorConfig", "PrivacyConfig", "PrivacyPipeline", "QuantizeStage",
+    "RoundEvent", "RuntimeContext", "ScaleStage", "StageRecord", "STRATEGIES", "SyncStrategy",
+    "TelemetrySink", "TopKStage", "TopologyConfig", "TrainingConfig", "upload_bytes_per_client",
 ]

@@ -22,9 +22,10 @@ moved.  With the complete graph, one mixing step, full participation and
 equal shards, a round ends in consensus at the FedAvg iterate.
 
 Privacy stages are refused: they act on a server-side aggregate, and
-gossip has none.  Not ported yet: ``state_dict`` (the checkpoint slice)
-and trace-driven mixing waves (the engine slice); ``Federation`` refuses
-the configurations that would need them.
+gossip has none.  ``state_dict`` carries the whole fleet (the (n, dim) node
+rows), the draws' generator state and the accumulators for a checkpoint.
+Not ported yet: trace-driven mixing waves (the engine slice), which
+``Federation`` refuses.
 """
 from __future__ import annotations
 
@@ -95,6 +96,7 @@ class GossipStrategy:
         # fleet state: one model row per client, all starting at params0
         row0 = ctx.pspace.ravel(ctx.server_state.params)
         self.node_rows = row0[None, :].repeat(ctx.train.n_clients, 1)
+        self.start_round = 0  # > 0 once resumed: run() skips the initial evaluation
         self.co2_l: list[float] = []
         self.dur_l: list[float] = []
         self.gap_l: list[float] = []
@@ -104,15 +106,45 @@ class GossipStrategy:
         self.last_acc = 0.0
         self.consensus = 0.0
 
+    def state_dict(self, ctx: RuntimeContext) -> dict:
+        """The whole fleet's state: the (n, dim) node rows, the draws, the
+        accumulators and the runtime's state (the selection policy moves
+        ``orch_state``; gossip never touches the server optimizer)."""
+        return {"rounds_done": self.start_round, "draws": self.draws.state_dict(),
+                "node_rows": self.node_rows, "co2_l": list(self.co2_l),
+                "dur_l": list(self.dur_l), "gap_l": list(self.gap_l), "cum_co2": self.cum_co2,
+                "mix_bytes_total": self.mix_bytes_total, "acc": self.acc,
+                "last_acc": self.last_acc, "consensus": self.consensus,
+                "runtime": ctx.state_dict()}
+
+    def load_state_dict(self, ctx: RuntimeContext, s: dict) -> None:
+        rows = np.asarray(s["node_rows"])
+        if rows.shape != tuple(self.node_rows.shape) or rows.dtype != np.float32:
+            raise ValueError(f"node_rows mismatch: checkpoint has {rows.shape} {rows.dtype}, "
+                             f"this run needs {tuple(self.node_rows.shape)} float32")
+        self.start_round = int(s["rounds_done"])
+        self.draws.load_state_dict(s["draws"])
+        self.node_rows = torch.from_numpy(rows).to(ctx.device)
+        self.co2_l = [float(v) for v in s["co2_l"]]
+        self.dur_l = [float(v) for v in s["dur_l"]]
+        self.gap_l = [float(v) for v in s["gap_l"]]
+        self.cum_co2 = float(s["cum_co2"])
+        self.mix_bytes_total = float(s["mix_bytes_total"])
+        self.acc = float(s["acc"])
+        self.last_acc = float(s["last_acc"])
+        self.consensus = float(s["consensus"])
+        ctx.load_state_dict(s["runtime"])
+
     def mean_model(self, ctx: RuntimeContext) -> dict[str, torch.Tensor]:
         """The average model x̄ over all node rows (the evaluation target)."""
         return ctx.pspace.unravel(self.node_rows.mean(dim=0))
 
     def run(self, ctx: RuntimeContext, emit: Callable) -> dict:
         train, cfg, topo = ctx.train, ctx.cfg, ctx.cfg.topology
-        self.acc = ctx.evaluate(self.mean_model(ctx))
-        self.last_acc = self.acc
-        for rnd in range(train.rounds):
+        if self.start_round == 0:
+            self.acc = ctx.evaluate(self.mean_model(ctx))
+            self.last_acc = self.acc
+        for rnd in range(self.start_round, train.rounds):
             self.draws.round_start()
             t_hours = rnd * cfg.carbon.round_hours
             inten = carbon_mod.intensity(ctx.fleet, t_hours,
@@ -163,6 +195,8 @@ class GossipStrategy:
                 consensus=self.consensus, spectral_gap=gap,
                 mix_steps=steps, mix_bytes=mix_bytes,
             ))
+            self.start_round = rnd + 1
+            ctx.checkpoint_round(self, rnd)
         return {
             "final_acc": self.last_acc,
             "mean_co2_g": float(np.mean(self.co2_l)) if self.co2_l else 0.0,

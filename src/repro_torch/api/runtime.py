@@ -24,6 +24,7 @@ import torch
 from repro_torch.api.config import ExperimentConfig
 from repro_torch.api.pipeline import (AggregationContext, PrivacyPipeline, StageRecord,
                                       build_pipeline)
+from repro_torch.checkpoint.state import pack_tree, unpack_tree
 from repro_torch.core import carbon as carbon_mod
 from repro_torch.core import orchestrator as orch
 from repro_torch.core.selection import POLICIES, policy_uses_rl
@@ -107,6 +108,39 @@ class RuntimeContext:
         self.ef_residuals = (
             torch.zeros((train.n_clients, self.pspace.dim), dtype=torch.float32, device=device)
             if any(s.name == "topk" for s in self.pipeline.stages) else None)
+        # Federation.run(checkpoint=...) installs a CheckpointManager here;
+        # strategies call checkpoint_round after every round's event
+        self.ckpt_manager = None
+
+    def checkpoint_round(self, strategy, rnd: int) -> None:
+        """Per-round checkpoint hook, a no-op unless a manager is installed."""
+        if self.ckpt_manager is not None:
+            self.ckpt_manager.on_round(strategy, self, rnd)
+
+    def state_dict(self) -> dict:
+        """The context's mutable run state; the rest of the wiring is a pure
+        function of the config and the task and is rebuilt on resume."""
+        s = {"server_state": pack_tree(self.server_state),
+             "orch_state": pack_tree(self.orch_state)}
+        if self.c_locals is not None:
+            s["c_locals"] = pack_tree(self.c_locals)
+        if self.ef_residuals is not None:
+            s["ef_residuals"] = pack_tree(self.ef_residuals)
+        return s
+
+    def load_state_dict(self, s: dict) -> None:
+        self.server_state = unpack_tree(s["server_state"], self.server_state)
+        self.orch_state = unpack_tree(s["orch_state"], self.orch_state)
+        if self.c_locals is not None:
+            if "c_locals" not in s:
+                raise ValueError("checkpoint has no SCAFFOLD control variates but this run "
+                                 "needs them; was it written by a different algorithm?")
+            self.c_locals = unpack_tree(s["c_locals"], self.c_locals)
+        if self.ef_residuals is not None:
+            if "ef_residuals" not in s:
+                raise ValueError("checkpoint has no EF residual bank but this run sparsifies; "
+                                 "was it written without topk_density set?")
+            self.ef_residuals = unpack_tree(s["ef_residuals"], self.ef_residuals)
 
     def _to_device(self, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)

@@ -11,6 +11,10 @@ pipeline and its kernels and averages step-normalized deltas.
 Every random draw of a round comes from ``self.draws`` (a seeded
 :class:`~repro_torch.draws.Draws` on the run's device by default).
 Replacing it after construction replays another run's draws.
+
+``state_dict`` / ``load_state_dict`` carry the run between processes: the
+draws' generator state, the accumulators, the accountant's step log and the
+runtime's state, so a resumed run replays the remaining rounds bitwise.
 """
 from __future__ import annotations
 
@@ -46,11 +50,34 @@ class SyncStrategy:
             if dp is not None and ctx.privacy.accounting == "per_region"
             else None
         )
+        # start_round > 0 means resumed: run() skips the initial evaluation
+        self.start_round = 0
         self.co2_l: list[float] = []
         self.dur_l: list[float] = []
         self.cum_co2 = 0.0
         self.acc = 0.0
         self.last_acc = 0.0
+
+    def state_dict(self, ctx: RuntimeContext) -> dict:
+        """Everything the round loop needs to continue bitwise."""
+        s = {"rounds_done": self.start_round, "draws": self.draws.state_dict(),
+             "co2_l": list(self.co2_l), "dur_l": list(self.dur_l), "cum_co2": self.cum_co2,
+             "acc": self.acc, "last_acc": self.last_acc, "runtime": ctx.state_dict()}
+        if self.accountant is not None:
+            s["accountant"] = self.accountant.state_dict()
+        return s
+
+    def load_state_dict(self, ctx: RuntimeContext, s: dict) -> None:
+        self.start_round = int(s["rounds_done"])
+        self.draws.load_state_dict(s["draws"])
+        self.co2_l = [float(v) for v in s["co2_l"]]
+        self.dur_l = [float(v) for v in s["dur_l"]]
+        self.cum_co2 = float(s["cum_co2"])
+        self.acc = float(s["acc"])
+        self.last_acc = float(s["last_acc"])
+        if self.accountant is not None:
+            self.accountant.load_state_dict(s["accountant"])
+        ctx.load_state_dict(s["runtime"])
 
     def _record_privacy(self, ctx: RuntimeContext, records, n_sel: int) -> None:
         """Compose this round's NoiseStage step into the subsampled accountant
@@ -72,9 +99,10 @@ class SyncStrategy:
 
     def run(self, ctx: RuntimeContext, emit) -> dict:
         train, cfg = ctx.train, ctx.cfg
-        self.acc = ctx.evaluate(ctx.server_state.params)
-        self.last_acc = self.acc
-        for rnd in range(train.rounds):
+        if self.start_round == 0:
+            self.acc = ctx.evaluate(ctx.server_state.params)
+            self.last_acc = self.acc
+        for rnd in range(self.start_round, train.rounds):
             self.draws.round_start()
             t_hours = rnd * cfg.carbon.round_hours
             inten = carbon_mod.intensity(ctx.fleet, t_hours,
@@ -130,6 +158,8 @@ class SyncStrategy:
                 eps_spent=self._spent_epsilon(ctx, rnd + 1),
                 selected=tuple(int(c) for c in sel), wire_bytes=wire,
             ))
+            self.start_round = rnd + 1
+            ctx.checkpoint_round(self, rnd)
         return {
             "final_acc": self.last_acc,
             "mean_co2_g": float(np.mean(self.co2_l)) if self.co2_l else 0.0,

@@ -1,6 +1,7 @@
-"""Typed telemetry stream (port of the synchronous and gossip parts of
-``repro.api.telemetry``): one :class:`RoundEvent` (a :class:`MixEvent` for
-gossip) per round, consumed by sinks (anything with ``emit(event)``)."""
+"""Typed telemetry stream (port of ``repro.api.telemetry``): one
+:class:`RoundEvent` per synchronous round, one :class:`FlushEvent` per
+async buffer flush and one :class:`MixEvent` per gossip round, consumed by
+sinks (anything with ``emit(event)``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,6 +36,19 @@ class RoundEvent:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlushEvent(RoundEvent):
+    """One staleness-weighted buffer flush at an edge aggregator."""
+
+    staleness: float = 0.0   # mean client->edge staleness of the flushed cohort
+    region: int = 0          # edge region that flushed
+
+    def history_row(self) -> dict:
+        row = super().history_row()
+        row.update(staleness=self.staleness, region=self.region)
+        return row
+
+
+@dataclasses.dataclass(frozen=True)
 class MixEvent(RoundEvent):
     """One decentralized gossip round: local training + neighbor mixing.
 
@@ -66,6 +80,7 @@ SYNC_HISTORY_KEYS = (
     "round", "acc", "co2_g", "cum_co2_g", "duration_s",
     "reward", "loss", "eps_spent", "selected",
 )
+ASYNC_HISTORY_KEYS = SYNC_HISTORY_KEYS + ("staleness", "region", "sim_time_s")
 GOSSIP_HISTORY_KEYS = SYNC_HISTORY_KEYS + (
     "consensus", "spectral_gap", "mix_steps", "mix_bytes",
 )
@@ -98,9 +113,15 @@ class ConsoleSink:
         self._n += 1
         if (self._n - 1) % self.every:
             return
+        if isinstance(event, MixEvent):
+            tag, extra = "mix", f"  consensus={event.consensus:.4f}"
+        elif isinstance(event, FlushEvent):
+            tag, extra = "flush", f"  staleness={event.staleness:.2f}"
+        else:
+            tag, extra = "round", ""
         print(
-            f"round {event.round:3d}  acc={event.acc:.3f}  "
-            f"CO2={event.co2_g:.0f} g  loss={event.loss:.3f}",
+            f"{tag} {event.round:3d}  acc={event.acc:.3f}  "
+            f"CO2={event.co2_g:.0f} g  loss={event.loss:.3f}{extra}",
             file=self.stream, flush=True,
         )
 

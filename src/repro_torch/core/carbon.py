@@ -67,11 +67,18 @@ def carbon_class(mean_intensity: torch.Tensor) -> torch.Tensor:
                        torch.where(mean_intensity < 180.0, 1, 2)).to(torch.int32)
 
 
+def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` as one float32 division per element, as XLA computes a
+    Python scalar over an array (PyTorch's ``scalar / tensor`` multiplies by
+    the reciprocal, which lands an ulp off)."""
+    return torch.full_like(den, num) / den
+
+
 def round_energy_kwh(fleet: ProviderFleet, round_flops: float) -> torch.Tensor:
     """Energy per client for one local round, in kWh."""
-    seconds = round_flops / (fleet.capability * DEVICE_PEAK_FLOPS)
+    seconds = _rdiv(round_flops, fleet.capability * DEVICE_PEAK_FLOPS)
     joules = seconds * DEVICE_POWER_W / fleet.efficiency
-    joules = joules + NODE_SETUP_S * NODE_POWER_W / fleet.efficiency
+    joules = joules + _rdiv(NODE_SETUP_S * NODE_POWER_W, fleet.efficiency)
     return joules / 3.6e6
 
 
@@ -85,8 +92,8 @@ def round_emissions_g(fleet: ProviderFleet, selected: torch.Tensor, t_hours: flo
 
 def client_durations_s(fleet: ProviderFleet, round_flops: float, model_bytes: float) -> torch.Tensor:
     """Per-client local-round latency (compute + 2x transfer), shape (n,)."""
-    compute = round_flops / (fleet.capability * DEVICE_PEAK_FLOPS)
-    transfer = 2.0 * model_bytes / (fleet.bandwidth * 100e6 / 8)
+    compute = _rdiv(round_flops, fleet.capability * DEVICE_PEAK_FLOPS)
+    transfer = _rdiv(2.0 * model_bytes, fleet.bandwidth * 100e6 / 8)
     return compute + transfer
 
 

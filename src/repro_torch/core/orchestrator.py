@@ -59,6 +59,17 @@ def init_state(n_providers: int, eps0: float = 0.3, *, stale_in_state: bool = Fa
     )
 
 
+def observe_staleness(st: OrchestratorState, mask, tau) -> OrchestratorState:
+    """Fold an observed per-provider staleness into the straggler EMA; only
+    the providers in ``mask`` (the flushed cohort) move.  The async strategy
+    calls this after every buffer flush."""
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=st.stale_ema.device)
+    mask = torch.as_tensor(mask, device=st.stale_ema.device)
+    new = torch.where(mask, STALE_EMA_BETA * st.stale_ema + (1.0 - STALE_EMA_BETA) * tau,
+                      st.stale_ema)
+    return st._replace(stale_ema=new)
+
+
 def encode_state(mean_intensity, acc_trend_up, mean_util) -> torch.Tensor:
     """Discretize (C_t, A_t, H_t) -> state index (Eq. 2)."""
     c = carbon_mod.carbon_class(mean_intensity)

@@ -1,8 +1,9 @@
-"""Every random draw of a synchronous round, behind one object.
+"""Every random draw of a run, behind one object.
 
-The reference threads ``jax.random`` keys through the round (the 5-way split
-per round in ``api/sync.py``, then per call site).  PyTorch generators give
-other numbers from the same seed, so the port does not imitate threefry.
+The reference threads ``jax.random`` keys through the run (the 5-way split
+per round in ``api/sync.py``, per region and dispatch wave in
+``api/async_hier.py``, then per call site).  PyTorch generators give other
+numbers from the same seed, so the port does not imitate threefry.
 Instead the strategy holds one :class:`Draws` object and asks it, by call
 site, for the numbers it needs:
 
@@ -13,29 +14,74 @@ site, for the numbers it needs:
     ``pads``                 the dealer's one-time pads         (secure_agg.py)
     ``dp_noise``             the Gaussian mechanism's noise     (dp.py)
 
-``round_start`` marks a new round.  A replacement object with the same
-methods can replay another run's draws, which is how the tests hold the
-port's rounds against the reference's.
+and tells it where the run is, by three hooks:
+
+    ``round_start()``                        a synchronous or gossip round
+    ``wave_start(region, wave)``             an async region dispatches a wave
+                                             (its selection and intensity draws)
+    ``flush_start(region, wave, n_prior)``   an async region flushes its buffer
+                                             (its pads and noise): ``wave`` is
+                                             the triggering wave, ``n_prior``
+                                             the flushes that wave triggered before
+
+A replacement object with the same methods can replay another run's draws,
+which is how the tests hold the port against the reference's key schedule.
 """
 from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 Device = Union[str, torch.device]
 
 
-class Draws:
-    """Seeded draws from one ``torch.Generator`` on ``device``."""
+def _region_seed(seed: int, region: int) -> int:
+    """The seed of region ``region``'s stream in a run of several regions."""
+    return int(np.random.SeedSequence([int(seed), int(region)]).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))
 
-    def __init__(self, seed: int, device: Device):
+
+class Draws:
+    """Seeded draws from one ``torch.Generator`` per region on ``device``.
+
+    With one region (the synchronous and gossip strategies, and an async run
+    of one region) the stream is seeded with ``seed`` itself, so an async run
+    of one region draws what the synchronous run draws, in the same order.
+    The hooks only switch the stream to the region they name.
+    """
+
+    def __init__(self, seed: int, device: Device, regions: int = 1):
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        seeds = [int(seed)] if regions == 1 else [_region_seed(seed, r) for r in range(regions)]
+        self.gens = []
+        for s in seeds:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(s)
+            self.gens.append(gen)
+        self.gen = self.gens[0]
 
     def round_start(self) -> None:
         """Start of a round (the seeded stream needs no bookkeeping)."""
+
+    def wave_start(self, region: int, wave: int) -> None:
+        self.gen = self.gens[region]
+
+    def flush_start(self, region: int, wave: int, n_prior: int) -> None:
+        self.gen = self.gens[region]
+
+    def state_dict(self) -> dict:
+        """Every region's generator state (uint8 tensors on the CPU; a
+        checkpoint hands them back as numpy arrays)."""
+        return {"gens": [g.get_state() for g in self.gens]}
+
+    def load_state_dict(self, s: dict) -> None:
+        if len(s["gens"]) != len(self.gens):
+            raise ValueError(f"draws stream count mismatch: checkpoint has {len(s['gens'])}, "
+                             f"this run has {len(self.gens)}")
+        for g, state in zip(self.gens, s["gens"]):
+            g.set_state(torch.as_tensor(state, dtype=torch.uint8, device="cpu"))
 
     def selection_uniform(self, n: int) -> torch.Tensor:
         """(n,) float32 uniforms in [0, 1) for score-based selection."""

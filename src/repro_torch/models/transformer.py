@@ -35,7 +35,8 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES or cfg.xlstm:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md section 2, item 1: moe, ssm, hybrid and xlstm stacks)")
+            f"(ROADMAP.md, open items, section 1, item 2: the rest of the LLM zoo, "
+            f"the moe, ssm, hybrid and xlstm stacks)")
 
 
 # ---------------------------------------------------------------------------

@@ -410,8 +410,10 @@ def test_gossip_rejects_hand_composed_privacy_pipeline(problem):
         tapi.Federation(cfg, _port_task(problem), privacy=pipe, device="cpu")
 
 
-def test_gossip_refuses_what_is_not_ported(problem):
+def test_gossip_refuses_what_is_not_ported(problem, tmp_path):
     with pytest.raises(NotImplementedError, match="engines"):
         _build(problem, engine=tapi.EngineConfig(trace="diurnal"))
-    with pytest.raises(NotImplementedError, match="checkpointing"):
-        _build(problem, checkpoint=tapi.CheckpointConfig(directory="ckpt"))
+    # checkpointing is ported: a gossip federation with a checkpoint
+    # directory builds and saves its state (tests/test_torch_resume.py)
+    fed = _build(problem, checkpoint=tapi.CheckpointConfig(directory=str(tmp_path / "ckpt")))
+    assert callable(fed.strategy.state_dict)

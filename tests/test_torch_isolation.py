@@ -1,9 +1,11 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``.
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
+nor ``msgpack``, which the GPU machine lacks (the port's checkpoint
+manifest is JSON).
 
-Two checks: an AST scan of every import statement, and a subprocess that
-blocks ``jax``, ``jaxlib`` and ``repro`` in ``sys.modules`` before importing
-every module of the port and ``chip_smoke``.
+Two checks each: an AST scan of every import statement, and a subprocess
+that blocks the modules in ``sys.modules`` before importing every module of
+the port and ``chip_smoke``.
 """
 import ast
 import os
@@ -17,6 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BLOCKED = ("jax", "jaxlib", "repro")
+NOT_ON_THE_CARD = ("msgpack",)
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -35,13 +38,18 @@ def test_no_module_imports_jax_or_the_reference(path):
     assert not _imported_roots(path) & set(BLOCKED)
 
 
-def test_port_imports_with_jax_and_the_reference_blocked():
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_what_the_card_lacks(path):
+    assert not _imported_roots(path) & set(NOT_ON_THE_CARD)
+
+
+def _import_everything(blocked: tuple[str, ...]) -> None:
     modules = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py"))
     code = "\n".join([
         "import importlib, sys",
-        f"for name in {BLOCKED!r}:",
+        f"for name in {blocked!r}:",
         "    sys.modules[name] = None  # any import of it now raises ImportError",
         f"for m in {modules!r}:",
         "    importlib.import_module(m)",
@@ -54,3 +62,11 @@ def test_port_imports_with_jax_and_the_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(modules) > 20
+
+
+def test_port_imports_with_jax_and_the_reference_blocked():
+    _import_everything(BLOCKED)
+
+
+def test_port_imports_with_what_the_card_lacks_blocked():
+    _import_everything(NOT_ON_THE_CARD)

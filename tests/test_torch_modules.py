@@ -398,6 +398,13 @@ def test_federation_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.Federation(tapi.ExperimentConfig(), task=None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.Federation(tapi.ExperimentConfig(topology=tapi.TopologyConfig(mode="async_hier")),
+                        task=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.Federation(tapi.ExperimentConfig(
+            checkpoint=tapi.CheckpointConfig(directory="ckpt")), task=None)
+    # what is still not ported is refused before any wiring
+    with pytest.raises(NotImplementedError):
+        tapi.Federation(tapi.ExperimentConfig(training=tapi.TrainingConfig(sharded=True)),
                         task=None, device="cpu")
